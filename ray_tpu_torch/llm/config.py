@@ -1,0 +1,58 @@
+"""LLMConfig — the config object the engine is built from (own copy of
+ray_tpu/llm/config.py's LLMConfig and ModelLoadingConfig, without jax).
+
+``build_model`` returns random weights drawn on the device when
+``model_source`` is None, as the JAX package does, and loads an npz
+checkpoint otherwise. Serving stores the weights once in ``cfg.dtype``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass
+class ModelLoadingConfig:
+    model_id: str = "tiny"  # a size key of the chosen model family
+    # npz checkpoint path or None → random init of the model config
+    model_source: str | None = None
+    tokenizer: str | None = "byte"
+
+
+@dataclass
+class LLMConfig:
+    model_loading_config: ModelLoadingConfig = field(default_factory=ModelLoadingConfig)
+    model_family: str = "llama"
+    model_kwargs: dict = field(default_factory=dict)
+    # max_slots, max_len, min_bucket, seed, kv_layout, page_size, ...;
+    # device ("cuda" by default, "cpu" on request)
+    engine_kwargs: dict = field(default_factory=dict)
+    deployment_config: dict = field(default_factory=dict)
+    accelerator_type: str | None = "GPU"
+
+    def build_model(self, device=None):
+        """Returns (TransformerConfig, params) on `device` (cuda unless the
+        caller asks for the CPU)."""
+        import torch
+
+        from ray_tpu_torch._device import resolve_device
+        from ray_tpu_torch.models import convert, llama, transformer
+
+        if self.model_family != "llama":
+            raise NotImplementedError(
+                f"model family {self.model_family!r} is not ported yet "
+                "(ROADMAP.md Queue 1, 'MoE and the other model families')")
+        device = resolve_device(device)
+        cfg = llama.llama_config(self.model_loading_config.model_id,
+                                 **self.model_kwargs)
+        src = self.model_loading_config.model_source
+        if src:
+            from ray_tpu_torch.llm import checkpoint_io
+
+            params = convert.params_from_jax(checkpoint_io.load_params(src),
+                                             cfg, device, cfg.dtype)
+        else:
+            seed = self.engine_kwargs.get("seed", 0)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            params = transformer.init(gen, cfg, device, dtype=cfg.dtype)
+        return cfg, params

@@ -1,0 +1,228 @@
+"""Decoder-only transformer core (dense stack), the twin of
+ray_tpu/models/transformer.py.
+
+Params are a dict tree with the JAX package's names and layouts, layers
+stacked on dim 0: ``wq [L,E,H,Dh]``, ``wk/wv [L,E,Hkv,Dh]``, ``wo [L,H,Dh,E]``,
+``wi_gate/wi_up [L,E,F]``, mlp ``wo [L,F,E]``, norms ``{"w": [L,E]}``,
+``embed [V,E]``, ``lm_head [E,V]``. Compute runs in ``cfg.dtype`` with f32
+norms and softmax, casting weights at each use as the JAX code does (a no-op
+when they are already stored in ``cfg.dtype``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from ray_tpu_torch import ops
+from ray_tpu_torch._device import resolve_device
+
+MOE_TODO = ("MoE is not ported yet: ROADMAP.md Queue 1, "
+            "'MoE and the other model families'")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int = 32000
+    d_model: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int | None = None          # None → MHA
+    d_head: int | None = None              # None → d_model // n_heads
+    d_ff: int = 2048
+    norm: str = "rms"                      # "rms" | "ln"
+    act: str = "swiglu"                    # "swiglu" | "gelu"
+    pos: str = "rope"                      # "rope" | "learned"
+    rope_theta: float = 10000.0
+    max_seq_len: int = 2048
+    tie_embeddings: bool = False
+    bias: bool = False                     # attn/mlp biases (GPT-2 style)
+    moe: Any = None
+    dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.moe is not None:
+            raise NotImplementedError(MOE_TODO)
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads or self.n_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def num_params(self) -> int:
+        def count(tree):
+            if isinstance(tree, dict):
+                return sum(count(v) for v in tree.values())
+            return math.prod(tree)
+        return count(param_shapes(self))
+
+
+# ------------------------------------------------------------------ init
+
+def param_shapes(cfg: TransformerConfig) -> dict:
+    """The param tree's shapes (same tree as the JAX package's init)."""
+    L, E, F, V = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.vocab_size
+    H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.head_dim
+    norm = {"w": (L, E)} if cfg.norm == "rms" else {"w": (L, E), "b": (L, E)}
+    attn = {"wq": (L, E, H, Dh), "wk": (L, E, Hkv, Dh), "wv": (L, E, Hkv, Dh),
+            "wo": (L, H, Dh, E)}
+    if cfg.bias:
+        attn.update(bq=(L, H, Dh), bk=(L, Hkv, Dh), bv=(L, Hkv, Dh), bo=(L, E))
+    if cfg.act == "swiglu":
+        mlp = {"wi_gate": (L, E, F), "wi_up": (L, E, F), "wo": (L, F, E)}
+    else:
+        mlp = {"wi": (L, E, F), "wo": (L, F, E)}
+        if cfg.bias:
+            mlp.update(bi=(L, F), bo=(L, E))
+    final = {"w": (E,)} if cfg.norm == "rms" else {"w": (E,), "b": (E,)}
+    out = {"embed": (V, E),
+           "layers": {"norm1": norm, "attn": attn, "norm2": dict(norm),
+                      "mlp": mlp},
+           "final_norm": final}
+    if cfg.pos == "learned":
+        out["pos_embed"] = (cfg.max_seq_len, E)
+    if not cfg.tie_embeddings:
+        out["lm_head"] = (E, V)
+    return out
+
+
+def _init_std(path: tuple, cfg: TransformerConfig) -> float | None:
+    """Normal std of a leaf (the JAX init's), or None for ones/zeros."""
+    if any(k in ("norm1", "norm2", "final_norm") for k in path) \
+            or path[-1] in ("bq", "bk", "bv", "bo", "bi"):
+        return None
+    if path[-1] == "wo":
+        return 0.02 / math.sqrt(2 * cfg.n_layers)
+    return 0.02
+
+
+def init(generator: torch.Generator, cfg: TransformerConfig, device=None,
+         dtype: torch.dtype | None = None) -> dict:
+    """Random params drawn on `device` (no host round trip: an 8B model is
+    drawn in seconds on the card). `dtype` defaults to cfg.param_dtype;
+    serving passes cfg.dtype to store the weights once in the compute type."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.param_dtype
+
+    def build(tree, path):
+        if isinstance(tree, dict):
+            return {k: build(v, path + (k,)) for k, v in tree.items()}
+        std = _init_std(path, cfg)
+        if std is None:
+            fill = 1.0 if path[-1] == "w" else 0.0
+            return torch.full(tree, fill, dtype=dtype, device=device)
+        x = torch.randn(tree, generator=generator, dtype=dtype, device=device)
+        return x.mul_(std)
+
+    return build(param_shapes(cfg), ())
+
+
+# ----------------------------------------------------------------- apply
+
+def _norm(x, p, cfg):
+    if cfg.norm == "rms":
+        return ops.rms_norm(x, p["w"])
+    return ops.layer_norm(x, p["w"], p.get("b"))
+
+
+def _proj_in(x, w, dt):
+    """einsum("bte,ehd->bthd") as one matmul on the flattened weight."""
+    E = w.shape[0]
+    return (x @ w.to(dt).reshape(E, -1)).unflatten(-1, w.shape[1:])
+
+
+def _proj_out(o, w, dt):
+    """einsum("bthd,hde->bte") as one matmul on the flattened weight."""
+    return o.flatten(-2) @ w.to(dt).reshape(-1, w.shape[-1])
+
+
+def _attn_qkv(x, p, cfg):
+    """QKV projections [B, T, E] → q [B,T,H,Dh], k/v [B,T,Hkv,Dh]."""
+    dt = cfg.dtype
+    q = _proj_in(x, p["wq"], dt)
+    k = _proj_in(x, p["wk"], dt)
+    v = _proj_in(x, p["wv"], dt)
+    if cfg.bias:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    return q, k, v
+
+
+def _attn_out(out, p, cfg):
+    """Attention output projection [B, T, H, Dh] → [B, T, E]."""
+    out = _proj_out(out, p["wo"], cfg.dtype)
+    if cfg.bias:
+        out = out + p["bo"].to(cfg.dtype)
+    return out
+
+
+def _attn_block(x, p, cfg, cos, sin):
+    q, k, v = _attn_qkv(x, p, cfg)
+    if cfg.pos == "rope":
+        q = ops.apply_rope(q, cos, sin)
+        k = ops.apply_rope(k, cos, sin)
+    return _attn_out(ops.attention(q, k, v, causal=True), p, cfg)
+
+
+def _dense_mlp(x, p, cfg):
+    dt = cfg.dtype
+    if cfg.act == "swiglu":
+        h = ops.swiglu(x @ p["wi_gate"].to(dt), x @ p["wi_up"].to(dt))
+        return h @ p["wo"].to(dt)
+    h = x @ p["wi"].to(dt)
+    if cfg.bias:
+        h = h + p["bi"].to(dt)
+    h = ops.gelu(h)
+    out = h @ p["wo"].to(dt)
+    if cfg.bias:
+        out = out + p["bo"].to(dt)
+    return out
+
+
+def layer(params: dict, i: int) -> dict:
+    """Layer i's slice of the stacked layer tree (views, no copies)."""
+    def take(tree):
+        if isinstance(tree, dict):
+            return {k: take(v) for k, v in tree.items()}
+        return tree[i]
+    return take(params["layers"])
+
+
+def rope_tables(cfg: TransformerConfig, device):
+    if cfg.pos != "rope":
+        return None, None
+    return ops.rope_frequencies(cfg.head_dim, cfg.max_seq_len,
+                                theta=cfg.rope_theta, device=device)
+
+
+def lm_logits(x, params, cfg):
+    dt = cfg.dtype
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(dt).T
+    return x @ params["lm_head"].to(dt)
+
+
+def forward(params, tokens, cfg: TransformerConfig):
+    """tokens [B, T] int → (logits [B, T, V] in cfg.dtype, aux_loss); the
+    aux loss is 0 for the dense stack."""
+    dt = cfg.dtype
+    x = params["embed"].to(dt)[tokens]
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][:tokens.shape[1]].to(dt)
+    cos, sin = rope_tables(cfg, x.device)
+    for i in range(cfg.n_layers):
+        lp = layer(params, i)
+        x = x + _attn_block(_norm(x, lp["norm1"], cfg), lp["attn"], cfg,
+                            cos, sin)
+        x = x + _dense_mlp(_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+    x = _norm(x, params["final_norm"], cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return lm_logits(x, params, cfg), aux

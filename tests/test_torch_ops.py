@@ -1,0 +1,246 @@
+"""ray_tpu_torch.ops against ray_tpu.ops on the CPU.
+
+Inputs come from a numpy seed and go through both packages. The JAX Pallas
+kernels run as the JAX tests run them (interpret mode); the port's side is
+the plain PyTorch version each kernel wrapper takes for CPU tensors. The
+Hopper kernels themselves run only on the card (chip_smoke.py).
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ray_tpu import ops as jops
+from ray_tpu_torch import ops as tops
+from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import flash_attention as tflash
+from ray_tpu_torch.ops import ragged_paged_attention as tragged
+
+# module objects (ray_tpu.ops re-exports a function named flash_attention)
+jflash = importlib.import_module("ray_tpu.ops.flash_attention")
+jragged = importlib.import_module("ray_tpu.ops.ragged_paged_attention")
+
+F32_TOL = 1e-6       # elementwise ops: same f32 formula, last-ulp differences
+KERNEL_TOL = 2e-5    # f32 attention: different summation order of dots
+BF16_TOL = 2e-2      # bf16 outputs: a few bf16 ulps at |x| ~ 1
+
+
+def _np(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dtype)
+
+
+def _j(a, dtype=jnp.float32):
+    return jnp.asarray(np.asarray(a, dtype=np.float32), dtype)
+
+
+def test_norms_match_jax():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 32)).astype(np.float32)
+    w = rng.standard_normal((32,)).astype(np.float32)
+    b = rng.standard_normal((32,)).astype(np.float32)
+    np.testing.assert_allclose(
+        tops.rms_norm(_t(x), _t(w)).numpy(), _np(jops.rms_norm(_j(x), _j(w))),
+        atol=F32_TOL, rtol=F32_TOL)
+    np.testing.assert_allclose(
+        tops.layer_norm(_t(x), _t(w), _t(b)).numpy(),
+        _np(jops.layer_norm(_j(x), _j(w), _j(b))), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("positions", ["none", "t", "bt"])
+def test_rope_matches_jax(positions):
+    rng = np.random.default_rng(1)
+    B, T, H, D = 2, 6, 3, 16
+    x = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    pos = {"none": None, "t": np.arange(3, 3 + T),
+           "bt": rng.integers(0, 40, size=(B, T))}[positions]
+    tc, ts = tops.rope_frequencies(D, 64, theta=500000.0)
+    jc, js = jops.rope_frequencies(D, 64, theta=500000.0)
+    np.testing.assert_allclose(tc.numpy(), _np(jc), atol=F32_TOL, rtol=F32_TOL)
+    got = tops.apply_rope(_t(x), tc, ts, positions=None if pos is None
+                          else torch.from_numpy(pos))
+    want = jops.apply_rope(_j(x), jc, js, positions=None if pos is None
+                           else jnp.asarray(pos))
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=F32_TOL,
+                               rtol=F32_TOL)
+
+
+def test_activations_match_jax():
+    rng = np.random.default_rng(2)
+    g = rng.standard_normal((4, 33)).astype(np.float32)
+    u = rng.standard_normal((4, 33)).astype(np.float32)
+    for tf, jf in ((tops.swiglu, jops.swiglu), (tops.geglu, jops.geglu)):
+        np.testing.assert_allclose(tf(_t(g), _t(u)).numpy(),
+                                   _np(jf(_j(g), _j(u))), atol=F32_TOL,
+                                   rtol=F32_TOL)
+    np.testing.assert_allclose(tops.gelu(_t(g)).numpy(), _np(jops.gelu(_j(g))),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_attention_dispatcher_gqa_matches_jax():
+    rng = np.random.default_rng(3)
+    B, T, H, Hkv, D = 2, 32, 4, 2, 16
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    v = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+    for causal in (True, False):
+        want = jops.attention(_j(q), _j(k), _j(v), causal=causal)
+        for impl in (None, "flash", "reference"):
+            got = tops.attention(_t(q), _t(k), _t(v), causal=causal, impl=impl)
+            np.testing.assert_allclose(got.numpy(), _np(want), atol=KERNEL_TOL,
+                                       rtol=KERNEL_TOL)
+
+
+def _flash_case(seed, *, B=1, H=4, Hkv=2, T=256, D=64):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, H, T, D)).astype(np.float32)
+    k = rng.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    v = rng.standard_normal((B, Hkv, T, D)).astype(np.float32)
+    return q, k, v
+
+
+def _jax_fwd(q, k, v, *, causal, dtype):
+    """The Pallas forward in interpret mode on repeated kv heads."""
+    n_rep = q.shape[1] // k.shape[1]
+    kr, vr = (np.repeat(x, n_rep, axis=1) for x in (k, v))
+    return jflash._fwd_call(_j(q, dtype), _j(kr, dtype), _j(vr, dtype),
+                            causal=causal, scale=q.shape[-1] ** -0.5,
+                            block_q=128, block_k=128, interpret=True)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_pallas_interpret(causal):
+    """Port's plain flash (the kernel's CPU version, GQA inputs) against the
+    JAX kernel in interpret mode: O and lse at f32."""
+    q, k, v = _flash_case(4)
+    o_j, lse_j = _jax_fwd(q, k, v, causal=causal, dtype=jnp.float32)
+    o_t, lse_t = tflash._fwd_call(_t(q), _t(k), _t(v), causal=causal,
+                                  scale=q.shape[-1] ** -0.5)
+    assert lse_t.shape == (1, 4, 256, 1) and lse_t.dtype == torch.float32
+    np.testing.assert_allclose(o_t.numpy(), _np(o_j), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+    np.testing.assert_allclose(lse_t.numpy(), _np(lse_j), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+    out = tops.flash_attention_forward(_t(q), _t(k), _t(v), causal=causal)
+    assert torch.equal(out, o_t)
+
+
+def test_flash_plain_bf16_matches_pallas_interpret():
+    """bf16 inputs: both round O to bf16 once after f32 math."""
+    q, k, v = _flash_case(5, T=128)
+    o_j, lse_j = _jax_fwd(q, k, v, causal=True, dtype=jnp.bfloat16)
+    o_t, lse_t = tflash._fwd_call(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                                  _t(v, torch.bfloat16), causal=True,
+                                  scale=q.shape[-1] ** -0.5)
+    assert o_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(o_t.float().numpy(), _np(o_j), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+    np.testing.assert_allclose(lse_t.numpy(), _np(lse_j), atol=1e-3, rtol=1e-3)
+
+
+def _ragged_case(rng, *, B=8, Hkv=2, G=2, Dh=16, P=16, N=33, nb=4):
+    """Twin of tests/test_ragged_attention.py::_rand_case."""
+    q = rng.standard_normal((B, Hkv, G, Dh)).astype(np.float32)
+    kp = rng.standard_normal((N, P, Hkv, Dh)).astype(np.float32)
+    vp = rng.standard_normal((N, P, Hkv, Dh)).astype(np.float32)
+    tbl = rng.integers(1, N, size=(B, nb)).astype(np.int32)
+    # mixed positions: first page only, page boundaries, mid-page, full
+    pos = np.asarray([0, 5, P - 1, P, 2 * P - 1, nb * P - 17, nb * P - 1,
+                      10][:B], np.int32)
+    return q, kp, vp, tbl, pos
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_ragged_plain_matches_pallas_interpret(seed):
+    q, kp, vp, tbl, pos = _ragged_case(np.random.default_rng(seed))
+    want = jragged.ragged_decode_attention(
+        _j(q), _j(kp), _j(vp), jnp.asarray(tbl), jnp.asarray(pos),
+        impl="kernel", interpret=True)
+    args = (_t(q), _t(kp), _t(vp), torch.from_numpy(tbl), torch.from_numpy(pos))
+    got = tops.ragged_decode_attention(*args)
+    ref = tops.ragged_decode_attention_reference(*args, scale=16 ** -0.5)
+    assert torch.equal(got, ref)  # CPU tensors take the plain version
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+
+
+def test_ragged_plain_bf16_matches_pallas_interpret():
+    q, kp, vp, tbl, pos = _ragged_case(np.random.default_rng(9), Dh=64, G=4)
+    bf = jnp.bfloat16
+    want = jragged.ragged_decode_attention(
+        _j(q, bf), _j(kp, bf), _j(vp, bf), jnp.asarray(tbl), jnp.asarray(pos),
+        impl="kernel", interpret=True)
+    got = tops.ragged_decode_attention(
+        _t(q, torch.bfloat16), _t(kp, torch.bfloat16), _t(vp, torch.bfloat16),
+        torch.from_numpy(tbl), torch.from_numpy(pos))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), _np(want), atol=BF16_TOL,
+                               rtol=BF16_TOL)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
+    """The kernel paths launch or raise — a CPU tensor handed to them is
+    refused, and only the device-dispatching entry points take the plain
+    version. No launch is counted on the CPU."""
+    before = (tflash.KERNEL.launches, tragged.KERNEL.launches)
+    q, k, v = _flash_case(6, T=64)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash._fwd_kernel(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
+                           _t(v, torch.bfloat16), causal=True, scale=0.1)
+    rq, kp, vp, tbl, pos = _ragged_case(np.random.default_rng(0))
+    with pytest.raises(ValueError, match="CUDA"):
+        tragged._ragged_kernel_call(
+            _t(rq, torch.bfloat16), _t(kp, torch.bfloat16),
+            _t(vp, torch.bfloat16), torch.from_numpy(tbl),
+            torch.from_numpy(pos), scale=0.25)
+    with pytest.raises(ValueError, match="impl"):
+        tops.ragged_decode_attention(_t(rq), _t(kp), _t(vp),
+                                     torch.from_numpy(tbl),
+                                     torch.from_numpy(pos), impl="kernel")
+    assert (tflash.KERNEL.launches, tragged.KERNEL.launches) == before
+
+
+@pytest.mark.parametrize("nvcc_ok", [True, False])
+def test_build_runs_one_nvcc_per_source_and_caches(tmp_path, monkeypatch,
+                                                   nvcc_ok):
+    """build_all with a stand-in nvcc: one compile per source, the library
+    appears atomically under a source-hash name and is not rebuilt; a
+    failing compile raises with nvcc's output and leaves no library."""
+    bindir = tmp_path / "cuda" / "bin"
+    bindir.mkdir(parents=True)
+    log = tmp_path / "calls.log"
+    nvcc = bindir / "nvcc"
+    body = ('out=""; while [ $# -gt 0 ]; do [ "$1" = -o ] && out="$2"; shift; '
+            f'done; echo "$out" >> {log}; ')
+    body += 'echo built > "$out"' if nvcc_ok else 'echo "error: bad"; exit 3'
+    nvcc.write_text("#!/bin/sh\n" + body + "\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    if not nvcc_ok:
+        with pytest.raises(RuntimeError, match="error: bad"):
+            _build.build_all()
+        assert not list((tmp_path / "build").glob("*.so"))
+        return
+    logs = _build.build_all()
+    assert sorted(logs) == _build.sources()
+    built = sorted(p.name for p in (tmp_path / "build").iterdir())
+    assert built == sorted(_build._target(n).name for n in _build.sources())
+    assert len(log.read_text().split()) == 2
+    assert _build.build_all() == {}  # cached: no second compile
+    assert len(log.read_text().split()) == 2
+
+
+def test_build_names_every_kernel_source():
+    assert _build.sources() == ["flash_attention_fwd", "ragged_paged_attention"]
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    for name in _build.sources():
+        target = _build._target(name)
+        assert target.parent == _build.BUILD_DIR
+        assert target.name.startswith(f"lib{name}-") and target.suffix == ".so"
