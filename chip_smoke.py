@@ -8,23 +8,39 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 
 1. Print the card's ``nvidia-smi --query-gpu=name,power.limit`` line and
    build every kernel of ``ray_tpu_torch/csrc`` for sm_90a (one nvcc per
-   source, all started together).
-2. Each kernel against its plain PyTorch version on the card, at the serving
-   path's shapes: flash forward on [1,32,T,128] bf16 (GQA, 8 kv heads) for
-   T in {64, 1024, 2048} causal plus a non-causal case; ragged paged decode
-   with B=8, Hkv=8, G=4, Dh=128, P=64 over a 257-page pool with mixed
-   positions, at pages_bound 1, 16 and 32. bf16 outputs within
-   atol = rtol = 2e-2 of the plain version (f32 math rounded to bf16); flash
-   lse within 1e-3. Times by CUDA events.
+   source, all started together), printing ptxas' registers and spills.
+2. Each of the four kernels against its plain PyTorch version on the card,
+   at the main paths' shapes, times by CUDA events:
+   - flash forward on [1,32,T,128] bf16 (GQA, 8 kv heads) for T in {64,
+     1024, 2048} causal plus a non-causal case, and on [4,32,2048,64]
+     (training); bf16 O within atol = rtol = 2e-2 of the plain version
+     (f32 math rounded to bf16), lse within 1e-3;
+   - ragged paged decode with B=8, Hkv=8, G=4, Dh=128, P=64 over a 257-page
+     pool with mixed positions, at pages_bound 1, 16 and 32, within 2e-2;
+   - flash backward (dK/dV and dQ kernels) on [4,32,2048,64] causal
+     (training), [1,32,2048,128] causal and [1,32,1024,64] full, timed,
+     and on one- and two-tile sequences untimed; each gradient within
+     atol = 2e-2 max|ref|, rtol = 2e-2 and a relative Frobenius error of
+     1e-2 of the plain backward fed the same (o, lse) and dO.
 3. Llama-3-8B at full width and depth (random init from a seed, bf16): one
    prefill at bucket 1024 and 4 teacher-forced ragged decode steps, kernels
    against plain versions, compared by cosine and max abs difference of the
    logits.
-4. The main path: ``LLMEngine.from_config`` (paged KV, page 64, 8 slots,
+4. The serving path: ``LLMEngine.from_config`` (paged KV, page 64, 8 slots,
    max_len 2048) serves 8 concurrent greedy requests with prompts of 5 to
    1500 tokens and max_tokens 32. Launch counts are zeroed just before and
    read just after; both kernels must have run, the ragged one 32 times per
    decode step.
+5. Llama-3.2-1B (tied, random init, f32 params): loss and gradients of one
+   [1, 2049] token row through the kernels, the plain versions and the
+   plain versions in f32; per gradient group the kernels agree with the
+   plain path (cosine) and are no farther from f32 than it.
+6. The training path: ``make_train_step`` + ``adamw(1e-4, weight_decay=
+   0.01)`` on Llama-3.2-1B, batch 4 x 2048, one warm-up and 10 timed steps
+   through ``ray_tpu_torch.benchmarks.train_step.measure``. Losses finite
+   and falling; launch counts zeroed just before the timed steps and read
+   just after: 32 forward (16 layers, forward and remat recompute), 16
+   dK/dV and 16 dQ launches a step.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -45,10 +61,17 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 ATOL = RTOL = 2e-2         # bf16 outputs vs plain f32 math rounded to bf16
 LSE_TOL = 1e-3
+# flash backward, each of dq/dk/dv vs the plain f32 math rounded to bf16:
+# elementwise within atol = BWD_TOL * max|ref| and rtol = BWD_TOL (P and dS
+# are rounded to bf16 before the second products), and the relative
+# Frobenius error within BWD_FRO_TOL
+BWD_TOL = 2e-2
+BWD_FRO_TOL = 1e-2
 # model level, per step: kernels vs plain versions (both bf16), and the
 # kernels' distance to an f32 run no worse than F32_ERR_RATIO x the plain
 # versions' (bf16 rounding differences grow through 32 random layers)
 LOGIT_COS_MIN = 0.995
+GRAD_COS_MIN = 0.99        # phase 5: per gradient group, kernels vs plain
 LOGIT_MAX_ABS = 0.6
 F32_ERR_RATIO = 2.0
 SEED = 0
@@ -83,10 +106,10 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ phase 2
 
 def check_flash(torch, gen, T: int, causal: bool, timed: bool,
-                D: int = 128) -> dict:
+                D: int = 128, B: int = 1) -> dict:
     from ray_tpu_torch.ops import flash_attention as fa
 
-    B, H, Hkv = 1, 32, 8
+    H, Hkv = 32, 8
     dev = torch.device("cuda")
     # [B, T, H, D] activations seen heads-major, exactly as ops.attention
     # hands them to the kernel on the prefill path
@@ -114,7 +137,8 @@ def check_flash(torch, gen, T: int, causal: bool, timed: bool,
     flops = 4.0 * B * H * D * pairs
     nbytes = 2.0 * (2 * B * H * T * D + 2 * B * Hkv * T * D) + 4.0 * B * H * T
     bms, by = bound_ms(nbytes, flops)
-    row = {"case": f"flash T={T} D={D} causal={causal}", "shape": [B, H, T, D],
+    row = {"case": f"flash B={B} T={T} D={D} causal={causal}",
+           "shape": [B, H, T, D],
            "kv_heads": Hkv, "max_abs_err": err, "lse_max_abs_err": lse_err,
            "tolerance": ATOL, "lse_tolerance": LSE_TOL, "bound_ms": bms,
            "bound_by": by}
@@ -130,6 +154,79 @@ def check_flash(torch, gen, T: int, causal: bool, timed: bool,
         # yardstick only: one PyTorch call for the same function
         row["library_ms"] = cuda_ms(torch, lambda: sdpa(
             qc, kr, vr, is_causal=causal, scale=scale), 20)
+    return row
+
+
+def check_flash_bwd(torch, gen, B: int, T: int, D: int, causal: bool,
+                    timed: bool) -> dict:
+    """dK/dV and dQ kernels against the plain backward (f32 math rounded to
+    bf16), both fed the forward kernel's (o, lse) and the same dO."""
+    from ray_tpu_torch.ops import flash_attention as fa
+
+    H, Hkv = 32, 8
+    dev = torch.device("cuda")
+
+    def act(heads):  # [B, T, heads, D] seen heads-major, as in training
+        return torch.randn((B, T, heads, D), generator=gen, device=dev,
+                           dtype=torch.bfloat16).transpose(1, 2)
+
+    q, k, v, do = act(H), act(Hkv), act(Hkv), act(H)
+    scale = D ** -0.5
+    o, lse = fa._fwd_call(q, k, v, causal=causal, scale=scale)
+    grads = fa.flash_attention_backward(q, k, v, o, lse, do, causal=causal,
+                                        scale=scale)
+    torch.cuda.synchronize()
+    refs = fa.flash_attention_backward_plain(
+        q.float(), k.float(), v.float(), o, lse, do.float(), causal=causal,
+        scale=scale)
+    case = f"flash_bwd B={B} T={T} D={D} causal={causal}"
+    row = {"case": case, "shape": [B, H, T, D], "kv_heads": Hkv,
+           "atol_rel_max": BWD_TOL, "rtol": BWD_TOL, "fro_tol": BWD_FRO_TOL}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        got, ref = got.float(), ref.to(torch.bfloat16).float()
+        atol = BWD_TOL * ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        fro = ((got - ref).norm() / ref.norm()).item()
+        row[f"{name}_max_abs_err"], row[f"{name}_rel_fro_err"] = err, fro
+        if not torch.isfinite(got).all():
+            fail(f"{case}: non-finite {name}")
+        if not torch.allclose(got, ref, atol=atol, rtol=BWD_TOL) \
+                or fro > BWD_FRO_TOL:
+            fail(f"{case}: {name} max abs err {err} (atol {atol}), "
+                 f"relative Frobenius err {fro}")
+    del refs
+    pairs = T * (T + 1) / 2 if causal else T * T
+    qo_bytes = 2.0 * B * H * T * D    # one bf16 [B,H,T,D] tensor
+    kv_bytes = 2.0 * B * Hkv * T * D  # one bf16 [B,Hkv,T,D] tensor
+    stat_bytes = 4.0 * B * H * T      # one f32 [B,H,T] lse or delta
+    # reads q, k, v, dO, lse, delta; writes dK, dV (dK/dV) or dQ (dQ)
+    row["dkv_bound_ms"], row["dkv_bound_by"] = bound_ms(
+        2 * qo_bytes + 4 * kv_bytes + 2 * stat_bytes,
+        8.0 * D * pairs * B * H)
+    row["dq_bound_ms"], row["dq_bound_by"] = bound_ms(
+        3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes,
+        6.0 * D * pairs * B * H)
+    if timed:
+        delta = (do.float() * o.float()).sum(-1)
+        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+        kw = {"causal": causal, "scale": scale}
+        row["dkv_ms"] = cuda_ms(torch, lambda: fa._dkv_launch(
+            q, k, v, do, lse, delta, dk, dv, **kw), 20)
+        row["dq_ms"] = cuda_ms(torch, lambda: fa._dq_launch(
+            q, k, v, do, lse, delta, dq, **kw), 20)
+        row["bwd_ms"] = cuda_ms(torch, lambda: fa.flash_attention_backward(
+            q, k, v, o, lse, do, **kw), 20)  # both kernels and delta
+        row["plain_ms"] = cuda_ms(
+            torch, lambda: fa.flash_attention_backward_plain(
+                q, k, v, o, lse, do, **kw), 3, warmup=1)
+        # yardstick only: autograd through one PyTorch call, backward timed
+        qc, dc = q.contiguous().requires_grad_(), do.contiguous()
+        kr, vr = (x.repeat_interleave(H // Hkv, dim=1).contiguous()
+                  .requires_grad_() for x in (k, v))
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qc, kr, vr, is_causal=causal, scale=scale)
+        row["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+            out, (qc, kr, vr), dc, retain_graph=True), 20)
     return row
 
 
@@ -199,6 +296,7 @@ def check_model(torch) -> dict:
 
     import numpy as np
 
+    from ray_tpu_torch.benchmarks.device_profile import busy_share
     from ray_tpu_torch.models import decoding, llama, transformer
     from ray_tpu_torch.models import decoding_paged as dp
 
@@ -255,42 +353,14 @@ def check_model(torch) -> dict:
         nxt = torch.argmax(logits["f32"]).int().reshape(1).expand(8)
         for name in runs:  # teacher-forced from the f32 run
             decoding.commit_tokens(states[name], nxt)
-    busy = decode_busy_share(torch, lambda: dp.decode_step_paged_ragged(
+    # host wall time of one kernel-path decode step (batch of 8 rows, one
+    # live) against the device time of its kernels
+    busy = busy_share(lambda: dp.decode_step_paged_ragged(
         params, states["kernel"], cfg, 1 << ((n + 4) // P).bit_length()))
     return {"model": "llama-3-8b random init bf16", "prompt": n,
             "bucket": bucket, "cos_min": LOGIT_COS_MIN,
             "max_abs_bound": LOGIT_MAX_ABS, "f32_err_ratio": F32_ERR_RATIO,
             "steps": rows, "decode_step_profile": busy}
-
-
-def decode_busy_share(torch, step) -> dict:
-    """Host wall time of one kernel-path decode step (batch of 8 rows, one
-    live) against the device time its kernels add up to, from
-    torch.profiler. The gap is host time the device sits idle."""
-    from torch.profiler import ProfilerActivity, profile
-
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name: dict = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            n_kernels += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    if not n_kernels:  # the profiler saw no device activity
-        return {"wall_ms": wall_ms, "device_ms": "not measured"}
-    device_ms = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "device_kernels": n_kernels, "busy_share": device_ms / wall_ms,
-            "top_kernels_ms": [[k[:60], v] for k, v in top]}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -350,6 +420,147 @@ def serve(torch, kernels) -> dict:
             "launches": launches}
 
 
+# ------------------------------------------------------------------ phase 5
+
+GRAD_GROUPS = {  # leaf paths of each gradient group compared in phase 5
+    "wq": [("layers", "attn", "wq")],
+    "wk": [("layers", "attn", "wk")],
+    "wv": [("layers", "attn", "wv")],
+    "wo": [("layers", "attn", "wo")],
+    "mlp": [("layers", "mlp", n) for n in ("wi_gate", "wi_up", "wo")],
+    "norms": [("layers", "norm1", "w"), ("layers", "norm2", "w"),
+              ("final_norm", "w")],
+    "embed": [("embed",)],
+}
+
+
+def train_config():
+    from ray_tpu_torch.models import llama
+
+    return llama.llama_config("1b", tie_embeddings=True, max_seq_len=2048)
+
+
+def check_model_grads(torch, kernels) -> dict:
+    """Llama-3.2-1B (random init from a seed, f32 params), loss and
+    gradients on one [1, 2049] token row three ways: the kernels (bf16
+    compute), the plain versions (bf16) and the plain versions with f32
+    compute. Per gradient group: cosine(kernels, plain) >= GRAD_COS_MIN,
+    and the kernels' relative distance to the f32 run at most F32_ERR_RATIO
+    x the plain path's + 1e-3. The backward kernels must have run in the
+    kernel run and in no other."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.models import transformer
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = transformer.init(gen, cfg, dev)
+    paths = sorted({p for ps in GRAD_GROUPS.values() for p in ps})
+
+    def leaf(path):
+        x = params
+        for key in path:
+            x = x[key]
+        return x
+
+    leaves = [leaf(p).requires_grad_() for p in paths]
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, 2049)),
+                             device=dev)
+    runs = {"kernel": (cfg, None), "plain": (cfg, "reference"),
+            "f32": (dataclasses.replace(cfg, dtype=torch.float32),
+                    "reference")}
+    loss, flat, launches = {}, {}, {}
+    for name, (c, impl) in runs.items():
+        for k in kernels:
+            k.launches = 0
+        value = transformer.loss_fn(params, tokens, c, attn_impl=impl)
+        grads = dict(zip(paths, torch.autograd.grad(value, leaves)))
+        torch.cuda.synchronize()
+        launches[name] = {k.symbol: k.launches for k in kernels}
+        loss[name] = value.item()
+        flat[name] = {g: torch.cat([grads[p].float().flatten() for p in ps])
+                      for g, ps in GRAD_GROUPS.items()}
+        del grads
+    for name, counts in launches.items():
+        for k in kernels:
+            want = cfg.n_layers if name == "kernel" else 0
+            if k.symbol != "flash_attention_fwd_bf16" and \
+                    counts[k.symbol] != want:
+                fail(f"model grads, {name} run: {k.symbol} launched "
+                     f"{counts[k.symbol]} times, expected {want}")
+    rows = {}
+    t = loss["f32"]
+    for g in GRAD_GROUPS:
+        k, p, f = (flat[x][g] for x in ("kernel", "plain", "f32"))
+        if not all(torch.isfinite(x).all() for x in (k, p, f)):
+            fail(f"model grads {g}: non-finite gradient")
+        row = {"cosine": torch.nn.functional.cosine_similarity(
+                   k, p, dim=0).item(),
+               "kernel_norm": k.norm().item(),
+               "kernel_rel_err_vs_f32": ((k - f).norm() / f.norm()).item(),
+               "plain_rel_err_vs_f32": ((p - f).norm() / f.norm()).item()}
+        rows[g] = row
+        if row["kernel_norm"] == 0 or row["cosine"] < GRAD_COS_MIN \
+                or row["kernel_rel_err_vs_f32"] > \
+                F32_ERR_RATIO * row["plain_rel_err_vs_f32"] + 1e-3:
+            fail(f"model grads {g}: {row}")
+    loss_row = {"kernel": loss["kernel"], "plain": loss["plain"], "f32": t,
+                "kernel_rel_err_vs_f32": abs(loss["kernel"] - t) / abs(t),
+                "plain_rel_err_vs_f32": abs(loss["plain"] - t) / abs(t)}
+    if not all(np.isfinite(v) for v in loss.values()) or \
+            loss_row["kernel_rel_err_vs_f32"] > \
+            F32_ERR_RATIO * loss_row["plain_rel_err_vs_f32"] + 1e-3:
+        fail(f"model loss: {loss_row}")
+    return {"model": "llama-3.2-1b random init, f32 params", "tokens": 2049,
+            "cos_min": GRAD_COS_MIN, "f32_err_ratio": F32_ERR_RATIO,
+            "loss": loss_row, "grads": rows, "launches": launches}
+
+
+# ------------------------------------------------------------------ phase 6
+
+def train(torch, kernels) -> dict:
+    """The training path: make_train_step + adamw(1e-4, weight_decay=0.01)
+    on Llama-3.2-1B, batch 4 x 2048, one warm-up step and 10 timed steps
+    through benchmarks.train_step.measure. Launch counts are zeroed just
+    before the timed steps and read just after."""
+    import math
+
+    from ray_tpu_torch.benchmarks.train_step import measure
+
+    cfg = train_config()
+    counts = {}
+
+    def zero():
+        for k in kernels:
+            k.launches = 0  # the main path starts here
+
+    def read():
+        counts.update({k.symbol: k.launches for k in kernels})
+
+    res = measure(cfg, batch=4, seq=2048, steps=10, before_timed=zero,
+                  after_timed=read, profile=True)
+    losses = res["losses"]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"training losses not finite and falling: {losses}")
+    L, steps = cfg.n_layers, res["steps"]
+    # forward plus its recompute under remat, one dK/dV and one dQ per layer
+    want = {"flash_attention_fwd_bf16": 2 * L * steps,
+            "flash_attention_bwd_dkv_bf16": L * steps,
+            "flash_attention_bwd_dq_bf16": L * steps}
+    if counts != want:
+        fail(f"training launches {counts}, expected {want}")
+    res["launches"] = counts
+    res["config"] = {"model": "llama-3.2-1b (tied, random init)",
+                     "n_layers": L, "d_model": cfg.d_model,
+                     "vocab_size": cfg.vocab_size, "remat": cfg.remat,
+                     "remat_policy": cfg.remat_policy}
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
@@ -380,7 +591,8 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 print(f"  {name}: {line.strip()}")
     print(json.dumps({"build_s": build_s, "built": sorted(logs)}), flush=True)
 
@@ -388,47 +600,82 @@ def main() -> int:
     checks = [check_flash(torch, gen, T, True, timed=True)
               for T in (64, 1024, 2048)]
     checks.append(check_flash(torch, gen, 1024, False, timed=True))
+    checks.append(check_flash(torch, gen, 2048, True, timed=True, D=64, B=4))
     rin = ragged_inputs(torch, gen)
     checks += [check_ragged(torch, rin, nb, timed=True) for nb in (1, 16, 32)]
     del rin
-    # the other compiled variants (head_dim 64 as in Llama-3.2-1B, smaller
-    # pages), checked untimed at small shapes
-    checks.append(check_flash(torch, gen, 128, True, timed=False, D=64))
+    # the other compiled variants (smaller pages), checked untimed
     for Dh, P in ((64, 16), (128, 32)):
         rin = ragged_inputs(torch, gen, Dh=Dh, P=P, N=33)
         checks.append(check_ragged(torch, rin, 4, timed=False))
+    # the backward at the training path's shape (Llama-3.2-1B, batch 4),
+    # at head_dim 128, full attention, and a one-tile sequence
+    checks += [check_flash_bwd(torch, gen, 4, 2048, 64, True, timed=True),
+               check_flash_bwd(torch, gen, 1, 2048, 128, True, timed=True),
+               check_flash_bwd(torch, gen, 1, 1024, 64, False, timed=True),
+               check_flash_bwd(torch, gen, 1, 64, 64, True, timed=False),
+               check_flash_bwd(torch, gen, 1, 128, 128, False, timed=False)]
+    torch.cuda.empty_cache()
     print(json.dumps({"card": card, "kernel_checks": checks}), flush=True)
 
-    serving = None
+    flash_kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ]
+    launches = {"serve": {}, "train": {}}
     if not args.only_kernels:
         model = check_model(torch)
         torch.cuda.empty_cache()  # phase 3's model and pools are gone
         print(json.dumps({"card": card, "model_check": model}), flush=True)
         serving = serve(torch, [fa.KERNEL, ra.KERNEL])
+        launches["serve"] = serving["launches"]
+        torch.cuda.empty_cache()
         print(json.dumps({"card": card, "serve": serving}), flush=True)
         print(f"serve on {card}: prefill {serving['prefill_ms_mean']:.3f} ms "
               f"mean, decode step {serving['decode_step_ms_mean']:.3f} ms "
               f"mean, {serving['tokens_per_s']:.1f} tokens/s", flush=True)
+        grads = check_model_grads(torch, flash_kernels)
+        torch.cuda.empty_cache()
+        print(json.dumps({"card": card, "model_grads": grads}), flush=True)
+        training = train(torch, flash_kernels)
+        launches["train"] = training["launches"]
+        print(json.dumps({"card": card, "train": training}), flush=True)
+        print(f"train on {card}: step {training['step_ms']:.3f} ms, "
+              f"{training['tokens_per_sec']:.1f} tokens/s, mfu_6nd "
+              f"{training['mfu_6nd']:.4f}, peak memory "
+              f"{training['max_memory_allocated'] / 2**30:.2f} GiB",
+              flush=True)
 
-    flash_main = next(c for c in checks
-                      if c["case"] == "flash T=2048 D=128 causal=True")
-    ragged_main = next(c for c in checks
-                       if c["case"] == "ragged P=64 pages_bound=32")
-    launches = serving["launches"] if serving else {}
+    def case(name):
+        return next(c for c in checks if c["case"] == name)
+
+    fwd = case("flash B=4 T=2048 D=64 causal=True")
+    bwd = case("flash_bwd B=4 T=2048 D=64 causal=True")
+    ragged = case("ragged P=64 pages_bound=32")
+    rows = [  # kernel, its path, source, Pallas kernel, case row, numbers
+        (fa.KERNEL, "train", "flash_attention_fwd.cu",
+         "ray_tpu/ops/flash_attention.py:43", fwd,
+         (fwd["max_abs_err"], fwd["ms"], fwd["bound_ms"], fwd["bound_by"])),
+        (fa.KERNEL_DKV, "train", "flash_attention_bwd.cu",
+         "ray_tpu/ops/flash_attention.py:152", bwd,
+         (max(bwd["dk_max_abs_err"], bwd["dv_max_abs_err"]), bwd["dkv_ms"],
+          bwd["dkv_bound_ms"], bwd["dkv_bound_by"])),
+        (fa.KERNEL_DQ, "train", "flash_attention_bwd.cu",
+         "ray_tpu/ops/flash_attention.py:197", bwd,
+         (bwd["dq_max_abs_err"], bwd["dq_ms"], bwd["dq_bound_ms"],
+          bwd["dq_bound_by"])),
+        (ra.KERNEL, "serve", "ragged_paged_attention.cu",
+         "ray_tpu/ops/ragged_paged_attention.py:49", ragged,
+         (ragged["max_abs_err"], ragged["ms"], ragged["bound_ms"],
+          ragged["bound_by"]))]
     kernels = []
-    for kern, c, src, rep in (
-            (fa.KERNEL, flash_main, "ray_tpu_torch/csrc/flash_attention_fwd.cu",
-             "ray_tpu/ops/flash_attention.py:43"),
-            (ra.KERNEL, ragged_main,
-             "ray_tpu_torch/csrc/ragged_paged_attention.cu",
-             "ray_tpu/ops/ragged_paged_attention.py:49")):
+    for kern, path, src, rep, c, (err, ms, bms, by) in rows:
         kernels.append({
-            "name": kern.symbol, "route": "cuda", "source": src,
-            "replaces": rep, "launches": launches.get(kern.symbol, 0),
-            "case": c["case"], "max_abs_err": c["max_abs_err"],
-            "tolerance": c["tolerance"], "ms": c["ms"], "kernel_ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c["library_ms"]})
+            "name": kern.symbol, "route": "cuda",
+            "source": f"ray_tpu_torch/csrc/{src}", "replaces": rep,
+            "launches": launches[path].get(kern.symbol, 0), "path": path,
+            "launches_by_path": {p: n.get(kern.symbol, 0)
+                                 for p, n in launches.items()},
+            "case": c["case"], "max_abs_err": err, "ms": ms,
+            "plain_ms": c["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": c["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

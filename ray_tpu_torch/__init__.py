@@ -1,4 +1,5 @@
-"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving path.
+"""ray_tpu_torch — the PyTorch/CUDA port of ray_tpu's serving and training
+paths.
 
 Mirrors ray_tpu's module paths and public names (``ray_tpu_torch.ops.attention``
 is the twin of ``ray_tpu.ops.attention``) so each reference module has an

@@ -34,7 +34,11 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "mma_tiles.cuh"
+
 namespace {
+
+using namespace mma_tiles;
 
 constexpr int BQ = 64;        // query rows per CTA
 constexpr int BK = 64;        // keys per kv tile
@@ -51,65 +55,12 @@ struct Smem {
   static constexpr size_t bytes = sizeof(__nv_bfloat16) * TILE * 5;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)) : "memory");
-}
-
-// c += a (16x16 bf16, row) * b (16x8 bf16, col), f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows x D bf16 tile from global (row stride `st` elements) into shared
-// memory (row stride LD) with 16-byte cp.async copies
+// one BQ x D tile into shared memory laid out for this kernel
 template <int D>
-__device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst,
-                                                const __nv_bfloat16* src,
-                                                long long st) {
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < BQ * CHUNKS; idx += NTHREADS) {
-    const int r = idx / CHUNKS;
-    const int c = idx % CHUNKS;
-    cp_async16(dst + r * Smem<D>::LD + c * 8, src + r * st + c * 8);
-  }
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long st) {
+  mma_tiles::load_tile_async<BQ, D, Smem<D>::LD, NTHREADS>(dst, src, st);
 }
 
 template <int D>
@@ -152,9 +103,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * v_sb + kvh * v_sh;
   const int n_kv = causal ? qi + 1 : T / BK;  // BQ == BK: diagonal tile = qi
 
-  load_tile_async<D>(Qs, qb, q_st);
-  load_tile_async<D>(Ks(0), kb, k_st);
-  load_tile_async<D>(Vs(0), vb, v_st);
+  stage_tile<D>(Qs, qb, q_st);
+  stage_tile<D>(Ks(0), kb, k_st);
+  stage_tile<D>(Vs(0), vb, v_st);
   cp_async_commit();
 
   uint32_t qf[KD][4];   // Q A-fragments, loaded once
@@ -168,8 +119,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   for (int j = 0; j < n_kv; ++j) {
     const int buf = j & 1;
     if (j + 1 < n_kv) {  // prefetch the next kv tile into the other buffer
-      load_tile_async<D>(Ks(buf ^ 1), kb + (long long)(j + 1) * BK * k_st, k_st);
-      load_tile_async<D>(Vs(buf ^ 1), vb + (long long)(j + 1) * BK * v_st, v_st);
+      stage_tile<D>(Ks(buf ^ 1), kb + (long long)(j + 1) * BK * k_st, k_st);
+      stage_tile<D>(Vs(buf ^ 1), vb + (long long)(j + 1) * BK * v_st, v_st);
       cp_async_commit();
       cp_async_wait<1>();
     } else {

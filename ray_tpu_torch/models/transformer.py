@@ -7,21 +7,29 @@ stacked on dim 0: ``wq [L,E,H,Dh]``, ``wk/wv [L,E,Hkv,Dh]``, ``wo [L,H,Dh,E]``,
 ``embed [V,E]``, ``lm_head [E,V]``. Compute runs in ``cfg.dtype`` with f32
 norms and softmax, casting weights at each use as the JAX code does (a no-op
 when they are already stored in ``cfg.dtype``).
+
+Training: ``loss_fn`` is the next-token loss; with ``cfg.remat`` the layers
+run under non-reentrant ``torch.utils.checkpoint`` as ``remat_policy``
+says, the counterpart of the JAX package's ``jax.checkpoint`` policies.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ray_tpu_torch import ops
 from ray_tpu_torch._device import resolve_device
 
 MOE_TODO = ("MoE is not ported yet: ROADMAP.md Queue 1, "
             "'MoE and the other model families'")
+REMAT_POLICIES = ("nothing", "dots", "pairs")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +49,18 @@ class TransformerConfig:
     tie_embeddings: bool = False
     bias: bool = False                     # attn/mlp biases (GPT-2 style)
     moe: Any = None
+    remat: bool = True                     # checkpoint layers (memory for FLOPs)
+    remat_policy: str = "nothing"          # "nothing" | "dots" (save matmul
+                                           # outputs) | "pairs" (every other layer)
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
         if self.moe is not None:
             raise NotImplementedError(MOE_TODO)
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
+                             f"got {self.remat_policy!r}")
 
     @property
     def kv_heads(self) -> int:
@@ -164,12 +178,13 @@ def _attn_out(out, p, cfg):
     return out
 
 
-def _attn_block(x, p, cfg, cos, sin):
+def _attn_block(x, p, cfg, cos, sin, attn_impl):
     q, k, v = _attn_qkv(x, p, cfg)
     if cfg.pos == "rope":
         q = ops.apply_rope(q, cos, sin)
         k = ops.apply_rope(k, cos, sin)
-    return _attn_out(ops.attention(q, k, v, causal=True), p, cfg)
+    return _attn_out(ops.attention(q, k, v, causal=True, impl=attn_impl), p,
+                     cfg)
 
 
 def _dense_mlp(x, p, cfg):
@@ -210,19 +225,84 @@ def lm_logits(x, params, cfg):
     return x @ params["lm_head"].to(dt)
 
 
-def forward(params, tokens, cfg: TransformerConfig):
+def _block(x, lp, cfg, cos, sin, attn_impl):
+    x = x + _attn_block(_norm(x, lp["norm1"], cfg), lp["attn"], cfg, cos, sin,
+                        attn_impl)
+    return x + _dense_mlp(_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat_policy="dots": keep the outputs
+    of the 2-D matmuls (the projections and the MLP, which is what
+    ``dots_with_no_batch_dims_saveable`` keeps in JAX) and recompute the
+    rest."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_fn(cfg: TransformerConfig, i: int):
+    """Layer i's block, wrapped in a checkpoint as the remat policy says."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return _block
+    if cfg.remat_policy == "pairs" and i % 2:
+        return _block  # the second layer of each pair keeps its activations
+    if cfg.remat_policy == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _save_matmuls)
+        return functools.partial(checkpoint, _block, use_reentrant=False,
+                                 context_fn=ctx)
+    return functools.partial(checkpoint, _block, use_reentrant=False)
+
+
+def forward(params, tokens, cfg: TransformerConfig, *,
+            attn_impl: str | None = None, return_hidden: bool = False):
     """tokens [B, T] int → (logits [B, T, V] in cfg.dtype, aux_loss); the
-    aux loss is 0 for the dense stack."""
+    aux loss is 0 for the dense stack. With return_hidden=True, returns the
+    final-normed hidden states [B, T, E] instead of logits.
+
+    With ``cfg.remat`` (and grad enabled) each layer is checkpointed as
+    ``cfg.remat_policy`` says: "nothing" recomputes every layer in
+    backward, "pairs" only the first layer of each pair, "dots" every layer
+    but its saved matmul outputs."""
+    if cfg.remat and cfg.remat_policy == "pairs" and cfg.n_layers % 2:
+        raise ValueError(
+            "remat_policy='pairs' needs an even n_layers; falling back "
+            "silently would misattribute benchmark results to selective remat")
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens]
     if cfg.pos == "learned":
         x = x + params["pos_embed"][:tokens.shape[1]].to(dt)
     cos, sin = rope_tables(cfg, x.device)
     for i in range(cfg.n_layers):
-        lp = layer(params, i)
-        x = x + _attn_block(_norm(x, lp["norm1"], cfg), lp["attn"], cfg,
-                            cos, sin)
-        x = x + _dense_mlp(_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+        x = _layer_fn(cfg, i)(x, layer(params, i), cfg, cos, sin, attn_impl)
     x = _norm(x, params["final_norm"], cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
     return lm_logits(x, params, cfg), aux
+
+
+def loss_fn(params, tokens, cfg: TransformerConfig, *,
+            attn_impl: str | None = None, fused_ce: bool | None = None,
+            ce_chunk: int | None = None):
+    """Next-token LM loss on tokens [B, T + 1] (labels ``tokens[:, 1:]``,
+    -100 ignored), the JAX package's rules: fused_ce (default: on for
+    vocab >= 8192, and off with tied embeddings, which have no lm_head)
+    streams the head matmul into a chunked cross-entropy so the [B, T, V]
+    logits never exist at once."""
+    if fused_ce is None:
+        fused_ce = cfg.vocab_size >= 8192
+    fused_ce = fused_ce and not cfg.tie_embeddings
+    labels = tokens[:, 1:]
+    if fused_ce:
+        hidden, _ = forward(params, tokens[:, :-1], cfg, attn_impl=attn_impl,
+                            return_hidden=True)
+        B, T, E = hidden.shape
+        loss, _ = ops.fused_head_cross_entropy(
+            hidden.reshape(B * T, E), params["lm_head"],
+            labels.reshape(B * T), chunk=ce_chunk or 2048)
+    else:
+        logits, _ = forward(params, tokens[:, :-1], cfg, attn_impl=attn_impl)
+        loss, _ = ops.softmax_cross_entropy(logits, labels)
+    return loss

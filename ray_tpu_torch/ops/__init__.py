@@ -1,15 +1,23 @@
 from ray_tpu_torch.ops.activations import geglu, gelu, swiglu
 from ray_tpu_torch.ops.attention import attention, reference_attention, repeat_kv
-from ray_tpu_torch.ops.flash_attention import flash_attention_forward
+# the flash_attention *function* stays in its module: exporting it here
+# would shadow the submodule ray_tpu_torch.ops.flash_attention
+from ray_tpu_torch.ops.flash_attention import (
+    FlashAttention, flash_attention_backward, flash_attention_forward)
+from ray_tpu_torch.ops.losses import (fused_head_cross_entropy,
+                                      softmax_cross_entropy)
 from ray_tpu_torch.ops.norms import layer_norm, rms_norm
 from ray_tpu_torch.ops.ragged_paged_attention import (
     ragged_decode_attention, ragged_decode_attention_reference)
 from ray_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 __all__ = [
+    "FlashAttention",
     "apply_rope",
     "attention",
+    "flash_attention_backward",
     "flash_attention_forward",
+    "fused_head_cross_entropy",
     "geglu",
     "gelu",
     "layer_norm",
@@ -19,5 +27,6 @@ __all__ = [
     "repeat_kv",
     "rms_norm",
     "rope_frequencies",
+    "softmax_cross_entropy",
     "swiglu",
 ]

@@ -8,9 +8,10 @@ checkout's own sources, into its own shared library under
 
 The libraries have a plain C interface (pointers and the stream as
 ``c_void_p``), so no PyTorch header is compiled and a build takes seconds.
-The file name carries a hash of the source and flags, so an edited source
-rebuilds and a stale library is never loaded. ``build_all`` starts one nvcc
-per source, all at once.
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and a stale
+library is never loaded. ``build_all`` starts one nvcc per source, all at
+once.
 """
 
 from __future__ import annotations
@@ -45,7 +46,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source's build
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

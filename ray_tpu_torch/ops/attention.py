@@ -1,18 +1,20 @@
 """Attention dispatcher.
 
 Models call ``attention(q, k, v, ...)`` with [B, T, H, D] activations (GQA
-allowed: fewer KV heads). On CUDA tensors the port's flash kernel
-(ops/flash_attention.py) always runs — prompt buckets are powers of two
->= 64, so its 64-row tiles divide every bucket — and reads the kv heads in
-place (no repeat_kv copy). On CPU tensors the plain reference runs, the
-same math the JAX package's CPU path uses.
+allowed: fewer KV heads). On CUDA tensors the port's flash kernels
+(ops/flash_attention.py) always run, through the ``FlashAttention``
+autograd function: the forward kernel, and the dK/dV and dQ kernels when a
+gradient flows back. Prompt buckets are powers of two >= 64 and training
+sequences multiples of 64, so the 64-row tiles divide every length, and the
+kernels read the kv heads in place (no repeat_kv copy). On CPU tensors the
+plain reference runs, the same math the JAX package's CPU path uses.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ray_tpu_torch.ops.flash_attention import _fwd_call
+from ray_tpu_torch.ops.flash_attention import FlashAttention
 
 _NEG_INF = -1e30
 
@@ -44,9 +46,9 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
               impl: str | None = None):
     """q: [B, T, H, D]; k, v: [B, T, Hkv, D]. Returns [B, T, H, D].
 
-    impl: None → the flash kernel for CUDA tensors, the reference for CPU
-    tensors; "flash" → the flash wrapper (its plain version on the CPU);
-    "reference" → the dense reference on any device.
+    impl: None → the flash kernels for CUDA tensors, the reference for CPU
+    tensors; "flash" → the flash autograd function (its plain versions on
+    the CPU); "reference" → the dense reference on any device.
     """
     H, Hkv = q.shape[2], k.shape[2]
     if H % Hkv != 0:
@@ -56,10 +58,10 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
     if impl is None:
         impl = "flash" if q.is_cuda else "reference"
     if impl == "flash":
-        # heads-major views, no copies: the kernel takes any strides with a
+        # heads-major views, no copies: the kernels take any strides with a
         # unit last dim, and o comes back dense in q's [B, T, H, D] layout
-        o, _ = _fwd_call(q.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), causal=causal, scale=scale)
+        o = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
+                                 v.transpose(1, 2), causal, scale)
         return o.transpose(1, 2)
     if impl != "reference":
         raise ValueError(f"impl must be None, 'flash' or 'reference', "

@@ -229,6 +229,8 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.llm, ray_tpu_torch.exceptions\n"
         "import ray_tpu_torch.ops._build, ray_tpu_torch.models.convert\n"
         "import ray_tpu_torch.llm.checkpoint_io\n"
+        "import ray_tpu_torch.train, ray_tpu_torch.benchmarks\n"
+        "import ray_tpu_torch.benchmarks.train_step\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

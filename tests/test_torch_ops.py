@@ -8,6 +8,7 @@ Hopper kernels themselves run only on the card (chip_smoke.py).
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,6 +145,107 @@ def test_flash_plain_bf16_matches_pallas_interpret():
     np.testing.assert_allclose(lse_t.numpy(), _np(lse_j), atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("blocks", [(128, 128), (128, 64)])
+def test_flash_backward_plain_matches_pallas_interpret(causal, blocks):
+    """Port's plain backward (GQA inputs, dk/dv per kv head) against the two
+    Pallas backward kernels in interpret mode on repeated kv heads, with
+    JAX's per-head dk/dv summed over each group; both fed JAX's (o, lse).
+    Uneven blocks exercise the JAX kernels' causal liveness predicates."""
+    q, k, v = _flash_case(8)
+    do = np.random.default_rng(9).standard_normal(q.shape).astype(np.float32)
+    scale = q.shape[-1] ** -0.5
+    o, lse = _jax_fwd(q, k, v, causal=causal, dtype=jnp.float32)
+    n_rep = q.shape[1] // k.shape[1]
+    kr, vr = (np.repeat(x, n_rep, axis=1) for x in (k, v))
+    jdq, jdk, jdv = jflash.flash_attention_backward(
+        _j(q), _j(kr), _j(vr), o, lse, _j(do), causal=causal, scale=scale,
+        block_q=blocks[0], block_k=blocks[1], interpret=True)
+    dq, dk, dv = tflash.flash_attention_backward(
+        _t(q), _t(k), _t(v), _t(np.array(o)), _t(np.array(lse)), _t(do),
+        causal=causal, scale=scale)
+    assert dk.shape == k.shape and dv.shape == v.shape
+
+    def group_sum(x):  # [B, H, T, D] → [B, Hkv, T, D]
+        x = _np(x)
+        return x.reshape(x.shape[0], -1, n_rep, *x.shape[2:]).sum(2)
+
+    for name, got, want in (("dq", dq, _np(jdq)), ("dk", dk, group_sum(jdk)),
+                            ("dv", dv, group_sum(jdv))):
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=5e-4,
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_function_matches_autograd(causal):
+    """FlashAttention on the CPU (plain forward and plain backward) against
+    torch.autograd through the plain forward, GQA, strided views."""
+    q, k, v = _flash_case(10, B=2, T=64, D=16)
+    do = torch.from_numpy(
+        np.random.default_rng(11).standard_normal(q.shape).astype(np.float32))
+
+    def leaves():  # heads-major views of [B, T, H, D], as the dispatcher makes
+        return [_t(x).transpose(1, 2).contiguous().transpose(1, 2)
+                .requires_grad_() for x in (q, k, v)]
+
+    a = leaves()
+    out = tflash.flash_attention(*a, causal=causal)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, a, do)
+    b = leaves()
+    ref, _ = tflash.flash_attention_forward_plain(*b, causal=causal,
+                                                  scale=16 ** -0.5)
+    want = torch.autograd.grad(ref, b, do)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(),
+                               atol=1e-6, rtol=1e-6)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("z_loss", [0.0, 1e-3])
+def test_cross_entropy_matches_jax(fused, z_loss):
+    """softmax_cross_entropy on hidden @ head, and fused_head_cross_entropy
+    (37 rows in chunks of 16, so the last chunk is padded), against the JAX
+    ops: loss, n_valid and the gradients w.r.t. hidden and head, with some
+    labels ignored."""
+    rng = np.random.default_rng(12)
+    N, E, V = 37, 16, 50
+    hidden = rng.standard_normal((N, E)).astype(np.float32)
+    head = (rng.standard_normal((E, V)) * 0.3).astype(np.float32)
+    labels = rng.integers(0, V, size=N)
+    labels[[0, 5, 36]] = -100
+
+    def jloss(h, w):
+        if fused:
+            return jops.fused_head_cross_entropy(
+                h, w, jnp.asarray(labels), z_loss=z_loss, chunk=16)
+        return jops.softmax_cross_entropy(h @ w, jnp.asarray(labels),
+                                          z_loss=z_loss)
+
+    (want, jn), jgrads = jax.value_and_grad(jloss, argnums=(0, 1),
+                                            has_aux=True)(_j(hidden), _j(head))
+    h, w = _t(hidden).requires_grad_(), _t(head).requires_grad_()
+    lab = torch.from_numpy(labels)
+    if fused:
+        got, n = tops.fused_head_cross_entropy(h, w, lab, z_loss=z_loss,
+                                               chunk=16)
+    else:
+        got, n = tops.softmax_cross_entropy(h @ w, lab, z_loss=z_loss)
+    assert float(n) == float(jn) == N - 3
+    np.testing.assert_allclose(got.item(), float(want), atol=2e-5, rtol=2e-5)
+    for g, jg in zip(torch.autograd.grad(got, (h, w)), jgrads):
+        np.testing.assert_allclose(g.numpy(), _np(jg), atol=2e-5, rtol=2e-5)
+
+
+def test_fused_cross_entropy_logits_spec_is_not_ported():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tops.fused_head_cross_entropy(torch.zeros(4, 2), torch.zeros(2, 3),
+                                      torch.zeros(4, dtype=torch.long),
+                                      logits_spec=("tp",))
+
+
 def _ragged_case(rng, *, B=8, Hkv=2, G=2, Dh=16, P=16, N=33, nb=4):
     """Twin of tests/test_ragged_attention.py::_rand_case."""
     q = rng.standard_normal((B, Hkv, G, Dh)).astype(np.float32)
@@ -188,11 +290,16 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     """The kernel paths launch or raise — a CPU tensor handed to them is
     refused, and only the device-dispatching entry points take the plain
     version. No launch is counted on the CPU."""
-    before = (tflash.KERNEL.launches, tragged.KERNEL.launches)
+    kernels = (tflash.KERNEL, tflash.KERNEL_DKV, tflash.KERNEL_DQ,
+               tragged.KERNEL)
+    before = [k.launches for k in kernels]
     q, k, v = _flash_case(6, T=64)
+    bq, bk, bv = (_t(x, torch.bfloat16) for x in (q, k, v))
     with pytest.raises(ValueError, match="CUDA"):
-        tflash._fwd_kernel(_t(q, torch.bfloat16), _t(k, torch.bfloat16),
-                           _t(v, torch.bfloat16), causal=True, scale=0.1)
+        tflash._fwd_kernel(bq, bk, bv, causal=True, scale=0.1)
+    lse = torch.zeros(1, 4, 64, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash._bwd_kernel(bq, bk, bv, bq, lse, bq, causal=True, scale=0.1)
     rq, kp, vp, tbl, pos = _ragged_case(np.random.default_rng(0))
     with pytest.raises(ValueError, match="CUDA"):
         tragged._ragged_kernel_call(
@@ -203,7 +310,7 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
         tops.ragged_decode_attention(_t(rq), _t(kp), _t(vp),
                                      torch.from_numpy(tbl),
                                      torch.from_numpy(pos), impl="kernel")
-    assert (tflash.KERNEL.launches, tragged.KERNEL.launches) == before
+    assert [k.launches for k in kernels] == before
 
 
 @pytest.mark.parametrize("nvcc_ok", [True, False])
@@ -232,15 +339,28 @@ def test_build_runs_one_nvcc_per_source_and_caches(tmp_path, monkeypatch,
     assert sorted(logs) == _build.sources()
     built = sorted(p.name for p in (tmp_path / "build").iterdir())
     assert built == sorted(_build._target(n).name for n in _build.sources())
-    assert len(log.read_text().split()) == 2
+    n = len(_build.sources())
+    assert len(log.read_text().split()) == n
     assert _build.build_all() == {}  # cached: no second compile
-    assert len(log.read_text().split()) == 2
+    assert len(log.read_text().split()) == n
 
 
-def test_build_names_every_kernel_source():
-    assert _build.sources() == ["flash_attention_fwd", "ragged_paged_attention"]
+def test_build_names_every_kernel_source(tmp_path, monkeypatch):
+    assert _build.sources() == ["flash_attention_bwd", "flash_attention_fwd",
+                                "ragged_paged_attention"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for name in _build.sources():
         target = _build._target(name)
         assert target.parent == _build.BUILD_DIR
         assert target.name.startswith(f"lib{name}-") and target.suffix == ".so"
+    # a shared header is part of every source's build: editing it renames
+    # (so rebuilds) every library
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for p in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
+        (csrc / p.name).write_bytes(p.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build._target(n) for n in _build.sources()}
+    with open(csrc / "mma_tiles.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(_build._target(n) != t for n, t in before.items())
