@@ -8,9 +8,13 @@ Phases, each of which exits non-zero on failure (nothing is caught):
 
 1. Print the card's ``nvidia-smi --query-gpu=name,power.limit`` line and
    build every kernel of ``ray_tpu_torch/csrc`` for sm_90a (one nvcc per
-   source, all started together), printing ptxas' registers and spills.
+   source, all started together), printing ptxas' registers, spills and
+   warnings; a spill store in any kernel fails the run.
 2. Each of the four kernels against its plain PyTorch version on the card,
    at the main paths' shapes, times by CUDA events:
+   - first, untimed, the edge cases of the forward and the backward whose
+     kernels work on 128-row tiles while callers need only T % 64 == 0:
+     T in {64, 192, 2048} x head_dim {64, 128} x causal/full, batch 2;
    - flash forward on [1,32,T,128] bf16 (GQA, 8 kv heads) for T in {64,
      1024, 2048} causal plus a non-causal case, and on [4,32,2048,64]
      (training); bf16 O within atol = rtol = 2e-2 of the plain version
@@ -75,6 +79,8 @@ GRAD_COS_MIN = 0.99        # phase 5: per gradient group, kernels vs plain
 LOGIT_MAX_ABS = 0.6
 F32_ERR_RATIO = 2.0
 SEED = 0
+EDGE_CASES = [(T, D, causal) for T in (64, 192, 2048) for D in (64, 128)
+              for causal in (True, False)]
 
 
 def fail(msg: str) -> None:
@@ -94,6 +100,30 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(logs: dict) -> list[dict]:
+    """Registers and spill stores of every compiled entry, from nvcc's
+    ``-Xptxas -v`` output."""
+    import re
+
+    rows, entry = [], None
+    for lib, log in sorted(logs.items()):
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = {"library": lib, "entry": m.group(1)}
+                rows.append(entry)
+                continue
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and entry is not None:
+                entry["spill_stores"] = int(m.group(1))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                entry["registers"] = int(m.group(1))
+    for r in rows:
+        r.setdefault("spill_stores", 0)
+    return rows
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -592,13 +622,25 @@ def main() -> int:
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
+                                       "spill", "warning")):
                 print(f"  {name}: {line.strip()}")
-    print(json.dumps({"build_s": build_s, "built": sorted(logs)}), flush=True)
+    ptxas = ptxas_summary(logs)
+    print(json.dumps({"build_s": build_s, "built": sorted(logs),
+                      "ptxas": ptxas}), flush=True)
+    spilled = [r for r in ptxas if r["spill_stores"]]
+    if spilled:
+        fail(f"ptxas reports spill stores: {spilled}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    checks = [check_flash(torch, gen, T, True, timed=True)
-              for T in (64, 1024, 2048)]
+    # the kernels' own tiles are 128 rows: T = 64 and 192 end in a half
+    # tile, T = 2048 in whole ones; both head dims, causal and full, forward
+    # and backward, untimed
+    checks = [check_flash(torch, gen, T, causal, timed=False, D=D, B=2)
+              for T, D, causal in EDGE_CASES]
+    checks += [check_flash_bwd(torch, gen, 2, T, D, causal, timed=False)
+               for T, D, causal in EDGE_CASES]
+    checks += [check_flash(torch, gen, T, True, timed=True)
+               for T in (64, 1024, 2048)]
     checks.append(check_flash(torch, gen, 1024, False, timed=True))
     checks.append(check_flash(torch, gen, 2048, True, timed=True, D=64, B=4))
     rin = ragged_inputs(torch, gen)
@@ -675,7 +717,7 @@ def main() -> int:
                                  for p, n in launches.items()},
             "case": c["case"], "max_abs_err": err, "ms": ms,
             "plain_ms": c["plain_ms"], "bound_ms": bms, "bound_by": by,
-            "library_ms": c["library_ms"]})
+            "bound_share": bms / ms, "library_ms": c["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

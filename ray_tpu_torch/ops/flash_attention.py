@@ -9,6 +9,13 @@ Counterpart of ray_tpu/ops/flash_attention.py. Three kernels:
   two-kernel flash backward, which recompute p = exp(s - lse) from the
   saved lse and take delta = rowsum(dO * O) from the caller.
 
+The forward and the dK/dV kernel are warp-specialised Hopper kernels (TMA
+loads into 128-byte swizzled shared memory under mbarriers, wgmma, built for
+sm_90a only; ``csrc/hopper_tiles.cuh``); the dQ kernel uses mma.sync
+(``csrc/mma_tiles.cuh``). Their tiles are 128 rows, but callers keep the
+rule T % 64 == 0 (``TILE``): a half tile at the end is zero-filled by TMA and
+masked in the kernel.
+
 ``FlashAttention`` (a ``torch.autograd.Function``, the counterpart of the
 ``jax.custom_vjp`` there) ties them together; ``flash_attention`` is its
 public form.
@@ -106,28 +113,33 @@ def _check_inputs(q, k, v):
 
 
 def _kernel_layout_ok(x) -> bool:
-    """Strides the kernels take: unit last stride, the others multiples of
-    8 elements (16-byte rows for cp.async), a 16-byte aligned base."""
-    return (x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:3])
+    """Strides the kernels take: unit last stride, the others positive
+    multiples of 8 elements (16-byte rows, which TMA tensor maps and cp.async
+    need), a 16-byte aligned base. [B,T,H,D] activations seen heads-major
+    (``transpose(1, 2)``) qualify as they are."""
+    return (x.stride(-1) == 1
+            and all(s > 0 and s % 8 == 0 for s in x.stride()[:3])
             and x.data_ptr() % 16 == 0)
 
 
 def _check_kernel_args(q, named):
-    """Device, dtype, layout and size checks shared by the three kernels."""
+    """Size, dtype, layout and device checks shared by the three kernels,
+    all made before the C entry point is called."""
     _check_inputs(q, named["k"], named["v"])
-    for name, x in named.items():
-        if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"{name} must be on q's CUDA device")
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bf16, got {name} {x.dtype}")
-        if not _kernel_layout_ok(x):
-            raise ValueError(f"{name} needs a unit last stride, other strides "
-                             "a multiple of 8 and 16-byte alignment")
     B, H, T, D = q.shape
     if D not in (64, 128):
         raise ValueError(f"flash kernel supports head_dim 64 or 128, got {D}")
     if T % TILE:
         raise ValueError(f"T={T} must be a multiple of the kernel tile {TILE}")
+    for name, x in named.items():
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"flash kernel takes bf16, got {name} {x.dtype}")
+        if not _kernel_layout_ok(x):
+            raise ValueError(f"{name} needs a unit last stride, other strides "
+                             "positive multiples of 8 and 16-byte alignment")
+    for name, x in named.items():
+        if not x.is_cuda or x.device != q.device:
+            raise ValueError(f"{name} must be on q's CUDA device")
 
 
 def _strides(*xs):

@@ -313,6 +313,104 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     assert [k.launches for k in kernels] == before
 
 
+def _bad_layout(kind):
+    """bf16 q, k, v (CPU) that the kernels must refuse, and the message."""
+    B, H, Hkv, T, D = 1, 4, 2, 64, 64
+    rng = np.random.default_rng(13)
+
+    def act(heads, t=T, d=D, pad=0):  # [B,T,heads,D+pad] seen heads-major
+        x = rng.standard_normal((B, t, heads, d + pad)).astype(np.float32)
+        return _t(x, torch.bfloat16)[..., :d].transpose(1, 2)
+
+    if kind == "stride_not_multiple_of_8":  # rows of 66 elements
+        return (act(H, pad=2), act(Hkv), act(Hkv)), "positive multiples of 8"
+    if kind == "base_misaligned":  # x[..., 1:]: one element off
+        q = _t(rng.standard_normal((B, T, H, D + 8)), torch.bfloat16)
+        return ((q[..., 1:D + 1].transpose(1, 2), act(Hkv), act(Hkv)),
+                "16-byte alignment")
+    if kind == "expanded_batch":  # stride 0: a broadcast, not a layout
+        q = act(H)[:1].expand(2, -1, -1, -1)
+        k, v = (act(Hkv).expand(2, -1, -1, -1) for _ in range(2))
+        return (q, k, v), "positive multiples of 8"
+    if kind == "head_dim_32":
+        return (act(H, d=32), act(Hkv, d=32), act(Hkv, d=32)), "head_dim"
+    if kind == "t_not_multiple_of_64":
+        return (act(H, t=96), act(Hkv, t=96), act(Hkv, t=96)), "multiple of"
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("entry", ["fwd", "bwd"])
+@pytest.mark.parametrize("kind", ["stride_not_multiple_of_8",
+                                  "base_misaligned", "expanded_batch",
+                                  "head_dim_32", "t_not_multiple_of_64"])
+def test_kernel_wrappers_refuse_bad_layouts_and_count_nothing(kind, entry):
+    """What the TMA tensor maps cannot describe is refused by the wrapper
+    with a ValueError before the C entry point is reached, so no launch is
+    counted (the C side checks the same again before encoding)."""
+    (q, k, v), msg = _bad_layout(kind)
+    kernels = (tflash.KERNEL, tflash.KERNEL_DKV, tflash.KERNEL_DQ)
+    before = [x.launches for x in kernels]
+    with pytest.raises(ValueError, match=msg):
+        if entry == "fwd":
+            tflash._fwd_kernel(q, k, v, causal=True, scale=0.125)
+        else:
+            B, H, T, _ = q.shape
+            lse = torch.zeros(B, H, T, 1)
+            tflash._bwd_kernel(q, k, v, q, lse, q, causal=True, scale=0.125)
+    assert [x.launches for x in kernels] == before
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_transposed_activation_views_fit_the_kernels(D):
+    """The dispatcher's [B,T,H,D] → [B,H,T,D] views, heads-major contiguous
+    tensors and empty_like outputs all pass the layout check, and such
+    CPU tensors get as far as the device check."""
+    x = torch.zeros(2, 192, 4, D, dtype=torch.bfloat16)
+    view = x.transpose(1, 2)
+    assert view.stride() == (192 * 4 * D, D, 4 * D, 1)
+    for t in (view, view.contiguous(), torch.empty_like(view)):
+        assert tflash._kernel_layout_ok(t)
+    kv = torch.zeros(2, 192, 2, D, dtype=torch.bfloat16).transpose(1, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash._fwd_kernel(view, kv, kv, causal=False, scale=D ** -0.5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_half_tile_matches_pallas_interpret(causal):
+    """T = 192: a multiple of the callers' 64 but not of the kernels'
+    128-row tiles. The plain forward and backward (what the card's kernels
+    are held to) against the Pallas kernels at 64-row blocks."""
+    q, k, v = _flash_case(14, T=192)
+    do = np.random.default_rng(15).standard_normal(q.shape).astype(np.float32)
+    scale = q.shape[-1] ** -0.5
+    n_rep = q.shape[1] // k.shape[1]
+    kr, vr = (np.repeat(x, n_rep, axis=1) for x in (k, v))
+    o, lse = jflash._fwd_call(_j(q), _j(kr), _j(vr), causal=causal,
+                              scale=scale, block_q=64, block_k=64,
+                              interpret=True)
+    o_t, lse_t = tflash._fwd_call(_t(q), _t(k), _t(v), causal=causal,
+                                  scale=scale)
+    np.testing.assert_allclose(o_t.numpy(), _np(o), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+    np.testing.assert_allclose(lse_t.numpy(), _np(lse), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+    jdq, jdk, jdv = jflash.flash_attention_backward(
+        _j(q), _j(kr), _j(vr), o, lse, _j(do), causal=causal, scale=scale,
+        block_q=64, block_k=64, interpret=True)
+    dq, dk, dv = tflash.flash_attention_backward(
+        _t(q), _t(k), _t(v), _t(np.array(o)), _t(np.array(lse)), _t(do),
+        causal=causal, scale=scale)
+
+    def group_sum(x):  # [B, H, T, D] → [B, Hkv, T, D]
+        x = _np(x)
+        return x.reshape(x.shape[0], -1, n_rep, *x.shape[2:]).sum(2)
+
+    for name, got, want in (("dq", dq, _np(jdq)), ("dk", dk, group_sum(jdk)),
+                            ("dv", dv, group_sum(jdv))):
+        np.testing.assert_allclose(got.numpy(), want, atol=5e-4, rtol=5e-4,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("nvcc_ok", [True, False])
 def test_build_runs_one_nvcc_per_source_and_caches(tmp_path, monkeypatch,
                                                    nvcc_ok):
@@ -360,7 +458,10 @@ def test_build_names_every_kernel_source(tmp_path, monkeypatch):
     for p in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    before = {n: _build._target(n) for n in _build.sources()}
-    with open(csrc / "mma_tiles.cuh", "a") as f:
-        f.write("// edited\n")
-    assert all(_build._target(n) != t for n, t in before.items())
+    # both shared headers: mma_tiles.cuh (dQ) and hopper_tiles.cuh (the
+    # forward and dK/dV kernels)
+    for header in ("mma_tiles.cuh", "hopper_tiles.cuh"):
+        before = {n: _build._target(n) for n in _build.sources()}
+        with open(csrc / header, "a") as f:
+            f.write("// edited\n")
+        assert all(_build._target(n) != t for n, t in before.items())
