@@ -11,7 +11,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    source, all started together), printing ptxas' registers, spills and
    warnings; a spill store in any kernel fails the run.
 2. Each of the four kernels against its plain PyTorch version on the card,
-   at the main paths' shapes, times by CUDA events:
+   at the main paths' shapes, times by CUDA events (ragged decode: the
+   profiler's device time of its two kernels, whose calls are too short
+   for events around a host-bound loop):
    - first, untimed, the edge cases of the forward and the backward whose
      kernels work on 128-row tiles while callers need only T % 64 == 0:
      T in {64, 192, 2048} x head_dim {64, 128} x causal/full, batch 2;
@@ -20,12 +22,20 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      (training); bf16 O within atol = rtol = 2e-2 of the plain version
      (f32 math rounded to bf16), lse within 1e-3;
    - ragged paged decode with B=8, Hkv=8, G=4, Dh=128, P=64 over a 257-page
-     pool with mixed positions, at pages_bound 1, 16 and 32, within 2e-2;
-   - flash backward (dK/dV and dQ kernels) on [4,32,2048,64] causal
+     pool with mixed positions, at pages_bound 1, 16 and 32, then at
+     pages_bound 32 with every row full (pos 2047) and with every row at
+     pos 0 (all splits but the first empty), timed, and at pages_bound 23
+     (not a multiple of the pages per split) untimed; within 2e-2. One
+     counted launch is two device kernels (split pass and merge pass), and
+     the time covers both; each row prints the split count and the pages
+     per split;
+   - flash backward (dQ and dK/dV kernels) on [4,32,2048,64] causal
      (training), [1,32,2048,128] causal and [1,32,1024,64] full, timed,
      and on one- and two-tile sequences untimed; each gradient within
      atol = 2e-2 max|ref|, rtol = 2e-2 and a relative Frobenius error of
-     1e-2 of the plain backward fed the same (o, lse) and dO.
+     1e-2 of the plain backward fed the same (o, lse) and dO, and the
+     delta the dQ kernel writes within 1e-4 max|ref| of the plain f32
+     delta.
 3. Llama-3-8B at full width and depth (random init from a seed, bf16): one
    prefill at bucket 1024 and 4 teacher-forced ragged decode steps, kernels
    against plain versions, compared by cosine and max abs difference of the
@@ -71,6 +81,9 @@ LSE_TOL = 1e-3
 # Frobenius error within BWD_FRO_TOL
 BWD_TOL = 2e-2
 BWD_FRO_TOL = 1e-2
+# delta = rowsum(dO * O) from the dQ kernel vs the plain f32 sum: the same
+# f32 products summed in another order
+DELTA_TOL = 1e-4
 # model level, per step: kernels vs plain versions (both bf16), and the
 # kernels' distance to an f32 run no worse than F32_ERR_RATIO x the plain
 # versions' (bf16 rounding differences grow through 32 random layers)
@@ -100,6 +113,31 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, key: str) -> tuple[float, dict]:
+    """Mean device time one call of fn spends in the kernels whose name
+    contains `key`, from torch.profiler: the kernels' own time, without the
+    gaps a host-bound stream of calls leaves between them (which CUDA
+    events around the loop would count). Also that time by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name:
+            name = e.name[e.name.index(key):].split("(")[0]
+            by_name[name] = (by_name.get(name, 0.0)
+                             + e.time_range.elapsed_us() / 1e3 / iters)
+    if not by_name:
+        fail(f"the profiler saw no device time in kernels named *{key}*")
+    return sum(by_name.values()), by_name
 
 
 def ptxas_summary(logs: dict) -> list[dict]:
@@ -189,8 +227,9 @@ def check_flash(torch, gen, T: int, causal: bool, timed: bool,
 
 def check_flash_bwd(torch, gen, B: int, T: int, D: int, causal: bool,
                     timed: bool) -> dict:
-    """dK/dV and dQ kernels against the plain backward (f32 math rounded to
-    bf16), both fed the forward kernel's (o, lse) and the same dO."""
+    """dQ and dK/dV kernels against the plain backward (f32 math rounded to
+    bf16), both fed the forward kernel's (o, lse) and the same dO; and the
+    delta the dQ kernel writes against the plain f32 delta."""
     from ray_tpu_torch.ops import flash_attention as fa
 
     H, Hkv = 32, 8
@@ -225,27 +264,37 @@ def check_flash_bwd(torch, gen, B: int, T: int, D: int, causal: bool,
             fail(f"{case}: {name} max abs err {err} (atol {atol}), "
                  f"relative Frobenius err {fro}")
     del refs
+    kw = {"causal": causal, "scale": scale}
+    # the delta the dQ kernel writes (the backward above kept it internal)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    fa._dq_launch(q, k, v, do, o, lse, delta, dq, **kw)
+    torch.cuda.synchronize()
+    delta_ref = fa.backward_delta(o, do)
+    err = (delta - delta_ref).abs().max().item()
+    row["delta_max_abs_err"] = err
+    row["delta_atol"] = DELTA_TOL * delta_ref.abs().max().item()
+    if not torch.isfinite(delta).all() or err > row["delta_atol"]:
+        fail(f"{case}: delta max abs err {err} (atol {row['delta_atol']})")
     pairs = T * (T + 1) / 2 if causal else T * T
     qo_bytes = 2.0 * B * H * T * D    # one bf16 [B,H,T,D] tensor
     kv_bytes = 2.0 * B * Hkv * T * D  # one bf16 [B,Hkv,T,D] tensor
     stat_bytes = 4.0 * B * H * T      # one f32 [B,H,T] lse or delta
-    # reads q, k, v, dO, lse, delta; writes dK, dV (dK/dV) or dQ (dQ)
+    # dK/dV reads q, k, v, dO, lse, delta and writes dK, dV; dQ reads q, k,
+    # v, dO, O, lse and writes dQ and delta, whose 2*D FLOPs a row it adds
     row["dkv_bound_ms"], row["dkv_bound_by"] = bound_ms(
         2 * qo_bytes + 4 * kv_bytes + 2 * stat_bytes,
         8.0 * D * pairs * B * H)
     row["dq_bound_ms"], row["dq_bound_by"] = bound_ms(
-        3 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes,
-        6.0 * D * pairs * B * H)
+        4 * qo_bytes + 2 * kv_bytes + 2 * stat_bytes,
+        6.0 * D * pairs * B * H + 2.0 * D * B * H * T)
     if timed:
-        delta = (do.float() * o.float()).sum(-1)
-        dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-        kw = {"causal": causal, "scale": scale}
+        row["dq_ms"] = cuda_ms(torch, lambda: fa._dq_launch(
+            q, k, v, do, o, lse, delta, dq, **kw), 20)
         row["dkv_ms"] = cuda_ms(torch, lambda: fa._dkv_launch(
             q, k, v, do, lse, delta, dk, dv, **kw), 20)
-        row["dq_ms"] = cuda_ms(torch, lambda: fa._dq_launch(
-            q, k, v, do, lse, delta, dq, **kw), 20)
         row["bwd_ms"] = cuda_ms(torch, lambda: fa.flash_attention_backward(
-            q, k, v, o, lse, do, **kw), 20)  # both kernels and delta
+            q, k, v, o, lse, do, **kw), 20)  # both kernels
         row["plain_ms"] = cuda_ms(
             torch, lambda: fa.flash_attention_backward_plain(
                 q, k, v, o, lse, do, **kw), 3, warmup=1)
@@ -280,36 +329,48 @@ def ragged_inputs(torch, gen, Dh: int = 128, P: int = 64, N: int = 257):
     return q, kp, vp, tbl, pos
 
 
-def check_ragged(torch, inputs, nb: int, timed: bool) -> dict:
+def check_ragged(torch, inputs, nb: int, timed: bool, pos=None,
+                 label: str = "") -> dict:
+    """The ragged kernels (split and merge pass, one counted launch) against
+    the plain version; `pos` replaces the inputs' mixed positions."""
     from ray_tpu_torch.ops import ragged_paged_attention as ra
 
-    q, kp, vp, tbl_full, pos = inputs
+    q, kp, vp, tbl_full, mixed = inputs
+    pos = mixed if pos is None else pos
     B, Hkv, G, Dh = q.shape
     P = kp.shape[1]
     tbl = tbl_full[:, :nb]  # strided view, as the engine slices it
     scale = Dh ** -0.5
+    name = f"ragged P={P} pages_bound={nb}{label}"
     out = ra.ragged_decode_attention(q, kp, vp, tbl, pos, scale=scale)
     torch.cuda.synchronize()
     ref = ra.ragged_decode_attention_reference(q, kp, vp, tbl, pos,
                                                scale=scale).float()
     err = (out.float() - ref).abs().max().item()
     if not torch.isfinite(out.float()).all():
-        fail(f"ragged nb={nb}: non-finite output")
+        fail(f"{name}: non-finite output")
     if not torch.allclose(out.float(), ref, atol=ATOL, rtol=RTOL):
-        fail(f"ragged nb={nb}: max abs err {err}")
+        fail(f"{name}: max abs err {err}")
+    S, pps = ra.ragged_splits(B, Hkv, nb, ra._sm_count(q.device.index))
     live = torch.minimum(pos.long() + 1, torch.full_like(pos.long(), nb * P))
     keys = int(live.sum().item())
     flops = 4.0 * Dh * G * Hkv * keys
     nbytes = (2.0 * 2 * keys * Hkv * Dh + 2 * 2.0 * q.numel()
               + 4.0 * (B * nb + B))
     bms, by = bound_ms(nbytes, flops)
-    row = {"case": f"ragged P={P} pages_bound={nb}", "shape": [B, Hkv, G, Dh],
-           "page_size": P, "pool_pages": kp.shape[0], "live_keys": keys,
-           "max_abs_err": err, "tolerance": ATOL, "bound_ms": bms,
-           "bound_by": by}
+    row = {"case": name, "shape": [B, Hkv, G, Dh], "page_size": P,
+           "pool_pages": kp.shape[0], "live_keys": keys, "splits": S,
+           "pages_per_split": pps, "max_abs_err": err, "tolerance": ATOL,
+           "bound_ms": bms, "bound_by": by}
     if timed:
-        row["ms"] = cuda_ms(torch, lambda: ra.ragged_decode_attention(
-            q, kp, vp, tbl, pos, scale=scale), 50)
+        def call():
+            return ra.ragged_decode_attention(q, kp, vp, tbl, pos, scale=scale)
+
+        # device time of the split and merge kernels of one call, and the
+        # time a call takes in a back-to-back stream (host included)
+        row["ms"], row["ms_by_kernel"] = device_ms(torch, call, 50,
+                                                   "ragged_")
+        row["call_ms"] = cuda_ms(torch, call, 50)
         row["plain_ms"] = cuda_ms(torch, lambda: ra.ragged_decode_attention(
             q, kp, vp, tbl, pos, scale=scale, impl="reference"), 5)
         row["library_ms"] = None  # no single PyTorch call does paged decode
@@ -645,6 +706,12 @@ def main() -> int:
     checks.append(check_flash(torch, gen, 2048, True, timed=True, D=64, B=4))
     rin = ragged_inputs(torch, gen)
     checks += [check_ragged(torch, rin, nb, timed=True) for nb in (1, 16, 32)]
+    B, P = rin[0].shape[0], rin[1].shape[1]
+    full = torch.full((B,), 32 * P - 1, dtype=torch.int32, device="cuda")
+    checks.append(check_ragged(torch, rin, 32, True, full, " all full"))
+    checks.append(check_ragged(torch, rin, 32, True, torch.zeros_like(full),
+                               " all at pos 0"))
+    checks.append(check_ragged(torch, rin, 23, timed=False))
     del rin
     # the other compiled variants (smaller pages), checked untimed
     for Dh, P in ((64, 16), (128, 32)):
@@ -707,9 +774,14 @@ def main() -> int:
          "ray_tpu/ops/ragged_paged_attention.py:49", ragged,
          (ragged["max_abs_err"], ragged["ms"], ragged["bound_ms"],
           ragged["bound_by"]))]
+    full = case("ragged P=64 pages_bound=32 all full")
+    extra = {ra.KERNEL.symbol: {  # one counted launch is two device kernels
+        "device_kernels_per_launch": 2, "splits": ragged["splits"],
+        "pages_per_split": ragged["pages_per_split"],
+        "all_full_ms": full["ms"], "all_full_bound_ms": full["bound_ms"]}}
     kernels = []
     for kern, path, src, rep, c, (err, ms, bms, by) in rows:
-        kernels.append({
+        kernels.append({**extra.get(kern.symbol, {}),
             "name": kern.symbol, "route": "cuda",
             "source": f"ray_tpu_torch/csrc/{src}", "replaces": rep,
             "launches": launches[path].get(kern.symbol, 0), "path": path,

@@ -1,35 +1,64 @@
-// Flash-attention backward for Hopper (sm_90a): dK/dV and dQ, bf16 in and
-// out, f32 lse and delta in.
+// Flash-attention backward for Hopper (sm_90a): dQ (with delta) and dK/dV,
+// bf16 in and out, f32 lse in, f32 delta out of the dQ kernel and into the
+// dK/dV kernel.
 //
 // Replaces the two TPU kernels of ray_tpu/ops/flash_attention.py::
 // flash_attention_backward: _dkv_kernel (the first pallas_call) and
 // _dq_kernel (the second). Same function: p = exp(s - lse) is recomputed per
 // tile from the forward's saved logsumexp, ds = p * (dp - delta) * scale with
-// dp = dO V^T and delta = rowsum(dO * O) (computed by the caller, as the JAX
-// package computes it outside its kernels), and
-//   dV = sum_q p^T dO,  dK = sum_q ds^T Q   (dK/dV kernel)
+// dp = dO V^T and delta = rowsum(dO * O), and
 //   dQ = sum_k ds K                         (dQ kernel)
-// No [T, T] tensor is ever written to device memory, and neither kernel uses
-// atomics: each output tile is owned by one CTA.
+//   dV = sum_q p^T dO,  dK = sum_q ds^T Q   (dK/dV kernel)
+// The JAX package computes delta outside its kernels; here the dQ kernel
+// computes it from the dO and O tiles it holds anyway and writes it out, and
+// the caller launches the dK/dV kernel after it on the same stream. No [T, T]
+// tensor is ever written to device memory, and neither kernel uses atomics:
+// each output tile is owned by one CTA.
 //
 // What bounds it on the H100: the dK/dV kernel does 8*D FLOPs per live
 // (q, k) pair and the dQ kernel 6*D, against O(T*D*H) bytes, so at training
 // shapes both are bound by the tensor cores: at [4,32,2048,64] causal the
-// dK/dV kernel's 137 GFLOP take 0.139 ms at 989 TFLOP/s, its bytes 0.015 ms.
-// Only wgmma reaches the bf16 tensor-core rate.
+// dK/dV kernel's 137 GFLOP take 0.139 ms at 989 TFLOP/s, its bytes 0.015 ms;
+// the dQ kernel's 103 GFLOP take 0.104 ms. Only wgmma reaches the bf16
+// tensor-core rate.
 //
-// dK/dV kernel (wgmma, TMA, mbarrier ring; hopper_tiles.cuh).
-// - One CTA of three warpgroups per (kv tile of 128 rows, kv head, batch)
-//   keeps its K and V tiles in shared memory and sweeps the G = H / Hkv q
-//   heads of its group, for each the q tiles from the diagonal on. The GQA
-//   sum over the group therefore happens in the f32 register accumulators,
-//   dK/dV come out per kv head, and no atomics are needed.
-// - Warpgroup 0 is the producer: one thread loads K and V once, then keeps
-//   a ring of two stages of (Q, dO, lse, delta) q tiles in flight by TMA,
-//   each stage with a full and an empty mbarrier (40 registers a thread
-//   after setmaxnreg).
-// - Warpgroups 1 and 2 own 64 kv rows each (232 registers a thread). Per q
-//   tile: S^T = K Q^T and dP^T = V dO^T by wgmma with both operands in
+// Both kernels are built the same way from hopper_tiles.cuh: one CTA of
+// three warpgroups, warpgroup 0 a producer (one thread issuing TMA loads,
+// 40 registers a thread after setmaxnreg), warpgroups 1 and 2 consumers of
+// 64 output rows each (232 registers a thread), a ring of stages in 128-byte
+// swizzled shared memory with a full and an empty mbarrier per stage.
+//
+// dQ kernel.
+// - One CTA per (q tile of 128 rows, q head, batch), reading kv head
+//   h / (H / Hkv). The producer loads the Q, dO and O tiles once, then keeps
+//   a ring of three stages of (K, V) tiles in flight. The kv tile is 128
+//   rows at D=64 and 64 at D=128, where the f32 [64 x 128] dQ accumulator
+//   leaves room for [64 x 64] score tiles only.
+// - Before the sweep each consumer computes delta = rowsum(dO * O) in f32
+//   for its 64 rows from the swizzled dO and O tiles (the four lanes of a
+//   quad take interleaved 16-byte chunks of a row, then sum across the
+//   quad), keeps it in registers in the accumulator's row layout, and
+//   stores it for rows < T into the [B, H, T] buffer the dK/dV kernel reads.
+// - Per kv tile: S = Q K^T and dP = dO V^T by wgmma with both operands in
+//   shared memory, in two commit groups, so P's exps run while dP is
+//   computed; dS = P (dP - delta) formed in registers and rounded to bf16
+//   once; dQ += dS K by wgmma with dS as the register A operand and K as
+//   the MN-major B operand read from the same swizzled tile, in two halves
+//   of the kv tile, so the second half's dS is formed while the first
+//   half's product runs. The scale of dS is applied to dQ once, at the
+//   store.
+// - CTAs start heaviest causal q tile first across all heads and batches
+//   (x = head, z = tile order).
+//
+// dK/dV kernel.
+// - One CTA per (kv tile of 128 rows, kv head, batch) keeps its K and V
+//   tiles in shared memory and sweeps the G = H / Hkv q heads of its group,
+//   for each the q tiles from the diagonal on. The GQA sum over the group
+//   therefore happens in the f32 register accumulators, dK/dV come out per
+//   kv head, and no atomics are needed.
+// - The producer loads K and V once, then keeps a ring of three stages of
+//   (Q, dO, lse, delta) q tiles in flight.
+// - Per q tile: S^T = K Q^T and dP^T = V dO^T by wgmma with both operands in
 //   shared memory; P^T and dS^T formed in registers from lse and delta
 //   (read from shared memory) and rounded to bf16; dV += P^T dO and
 //   dK += dS^T Q by wgmma with A from registers and dO, Q as MN-major B
@@ -39,74 +68,25 @@
 //   run while dP^T is computed (separate commit groups), and the second
 //   half of the q tile's dS^T while the first half's dV, dK products run.
 //   The scale of dS is applied to dK once, at the store.
-// - Edge tiles: TMA zero-fills rows >= T; P^T is masked for keys after
-//   their query and for query rows >= T, and no row >= T is stored.
-// - The previous version (mma.sync per warp, ldmatrix, cp.async issued by
-//   the compute threads, 228 registers at D=64) reached 18 % of its bound.
 //
-// dQ kernel (unchanged; mma_tiles.cuh).
-// - One CTA of 4 warps per (q tile of 64 rows, q head, batch) keeps Q's and
-//   dO's fragments in registers and sweeps the kv tiles up to the diagonal:
-//   S = Q K^T, dP = dO V^T, and dQ += dS K with dS rounded to bf16 in
-//   registers; mma.sync m16n8k16 bf16 with f32 accumulation, ldmatrix
-//   (plain and transposed) from padded shared-memory rows, cp.async double
-//   buffering of the kv tiles, consumed in column chunks of CH (64 at D=64,
-//   32 at D=128) so the score tiles and the [16 x D] accumulator fit in
-//   registers at D=128.
-// - Any strides with a unit last dim for q, k, v, dO and the outputs in
-//   both kernels, so the [B,T,H,D] activations of the model go in as
-//   transposed views.
+// Both kernels: TMA zero-fills rows >= T; keys after their query and rows
+// >= T are masked, and no row >= T is stored. Any strides with a unit last
+// dim for q, k, v, dO, O and the outputs, so the [B,T,H,D] activations of
+// the model go in as transposed views. The previous versions (mma.sync per
+// warp, ldmatrix, cp.async issued by the compute threads) reached 18 %
+// (dK/dV) and 23 % (dQ, with delta a separate PyTorch reduction) of their
+// bounds.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "hopper_tiles.cuh"
-#include "mma_tiles.cuh"
 
 namespace {
 
 using namespace hopper_tiles;
-using namespace mma_tiles;
 using bf16 = __nv_bfloat16;
-
-// dQ kernel tiles
-constexpr int BT = 64;          // rows of a q tile and of a kv tile
-constexpr int NWARPS = 4;       // 16 rows of the CTA's fixed tile per warp
-constexpr int NTHREADS = NWARPS * 32;
-
-template <int D>
-struct Cfg {
-  static constexpr int LD = D + 8;       // bf16 row stride: ldmatrix conflict-free
-  static constexpr int TILE = BT * LD;   // bf16 elements of one smem tile
-  static constexpr int CH = D == 128 ? 32 : 64;  // swept columns per chunk
-  static constexpr int KD = D / 16;      // k16 steps over the head dim
-  static constexpr int ND = D / 8;       // n8 tiles of a [16 x D] accumulator
-  static constexpr int NC = CH / 8;      // n8 tiles of a score chunk
-  // six tiles: two fixed, two double-buffered pairs
-  static constexpr size_t tiles_bytes = sizeof(bf16) * TILE * 6;
-};
-
-template <int D>
-__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src,
-                                           long long st) {
-  mma_tiles::load_tile_async<BT, D, Cfg<D>::LD, NTHREADS>(dst, src, st);
-}
-
-// Write a warp's [16 x D] f32 accumulator (rows r0 + g, r0 + g + 8) as bf16.
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, long long st,
-                                           const float (&acc)[D / 8][4],
-                                           int r0, int g, int c2) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bf16* row = out + (long long)(r0 + g + i * 8) * st;
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(row + nt * 8 + c2) =
-          __floats2bfloat162_rn(acc[nt][2 * i], acc[nt][2 * i + 1]);
-  }
-}
 
 // dK/dV kernel: wgmma on TMA-fed tiles (hopper_tiles.cuh)
 constexpr int BKV = 128;         // kv rows per CTA, 64 per consumer warpgroup
@@ -360,142 +340,245 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// dQ kernel: wgmma on TMA-fed tiles, delta computed in the kernel
+constexpr int BQ_DQ = 128;       // q rows per CTA, 64 per consumer warpgroup
+constexpr int DQ_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+
 template <int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int H, int Hkv, int T,
-                    long long q_sb, long long q_sh, long long q_st,
-                    long long k_sb, long long k_sh, long long k_st,
-                    long long v_sb, long long v_sh, long long v_st,
-                    long long d_sb, long long d_sh, long long d_st,
+struct Dq {
+  // kv rows per swept tile: at D = 128 the f32 [64 x 128] dQ accumulator
+  // leaves room for [64 x 64] S and dP tiles only
+  static constexpr int BK = D == 64 ? 128 : 64;
+  static constexpr int STAGES = 3;
+  static constexpr int QT_BYTES = BQ_DQ * D * 2;   // the Q, dO or O tile
+  static constexpr int KV_BYTES = BK * D * 2;      // one K or V tile
+  static constexpr int STAGE_BYTES = 2 * KV_BYTES;
+  static constexpr int BAR_OFF = 3 * QT_BYTES + STAGES * STAGE_BYTES;
+  static constexpr size_t smem = BAR_OFF + 8 * (2 * STAGES + 1) + 1024;
+};
+
+// sum of the eight products of two 16-byte chunks of bf16, in f32
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float acc) {
+  const uint32_t x[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t y[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x[i]));
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&y[i]));
+    acc = fmaf(u.x, v.x, acc);
+    acc = fmaf(u.y, v.y, acc);
+  }
+  return acc;
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap to,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int Hkv, int T,
                     long long dq_sb, long long dq_sh, long long dq_st,
                     float scale, int causal) {
-  using C = Cfg<D>;
-  constexpr int LD = C::LD, CH = C::CH, KD = C::KD, ND = C::ND, NC = C::NC;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  // Q, dO, then (K, V) buffer 0, (K, V) buffer 1
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Ds = Qs + C::TILE;
-  auto Ks = [&](int buf) { return Qs + (2 + 2 * buf) * C::TILE; };
-  auto Vs = [&](int buf) { return Qs + (3 + 2 * buf) * C::TILE; };
+  using C = Dq<D>;
+  constexpr int BK = C::BK;
+  extern __shared__ __align__(128) unsigned char smem_raw[];  // as dK/dV's
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t qs = base;
+  const uint32_t dos = base + C::QT_BYTES;
+  const uint32_t os = base + 2 * C::QT_BYTES;
+  auto ks = [&](int s) { return base + 3 * C::QT_BYTES + s * C::STAGE_BYTES; };
+  auto vs = [&](int s) { return ks(s) + C::KV_BYTES; };
+  const uint32_t bars = base + C::BAR_OFF;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (C::STAGES + s); };
+  const uint32_t q_full = bars + 8 * 2 * C::STAGES;
+  static_assert(C::smem <= 232448, "shared memory of one CTA");
 
-  const int qi = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  // x fastest: every (head, batch) of the heaviest causal q tile first
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qi = gridDim.z - 1 - blockIdx.z;
   const int kvh = h / (H / Hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;       // this warp's q rows within the tile
-  const int g = lane / 4;
-  const int c2 = (lane % 4) * 2;
-  const int lm = lane / 8;
-  const int lr = lane % 8;
+  const int q0 = qi * BQ_DQ;
+  const int kv_end = causal ? min(q0 + BQ_DQ, T) : T;  // keys < kv_end
+  const int n_kv = (kv_end + BK - 1) / BK;
 
-  const long long q0 = (long long)qi * BT;
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
-  const int n_kv = causal ? qi + 1 : T / BT;  // BQ == BK: diagonal tile = qi
-
-  stage_tile<D>(Qs, q + b * q_sb + h * q_sh + q0 * q_st, q_st);
-  stage_tile<D>(Ds, dout + b * d_sb + h * d_sh + q0 * d_st, d_st);
-  stage_tile<D>(Ks(0), kb, k_st);
-  stage_tile<D>(Vs(0), vb, v_st);
-  cp_async_commit();
-
-  // lse and delta of rows g and g + 8 of this warp
-  const long long r = ((long long)b * H + h) * T + q0 + r0 + g;
-  const float lse_r[2] = {lse[r], lse[r + 8]};
-  const float del_r[2] = {delta[r], delta[r + 8]};
-
-  uint32_t qf[KD][4], df[KD][4];  // Q and dO A-fragments, loaded once
-  float dqa[ND][4];
-#pragma unroll
-  for (int nt = 0; nt < ND; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.f;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_kv) {  // prefetch the next kv tile into the other buffer
-      stage_tile<D>(Ks(buf ^ 1), kb + (long long)(j + 1) * BT * k_st, k_st);
-      stage_tile<D>(Vs(buf ^ 1), vb + (long long)(j + 1) * BT * v_st, v_st);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // one arrival per consumer warp
     }
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int off = (r0 + lr + (lm % 2) * 8) * LD + kk * 16 + (lm / 2) * 8;
-        ldmatrix_x4(qf[kk], Qs + off);
-        ldmatrix_x4(df[kk], Ds + off);
-      }
-    }
-    const bf16* Kt = Ks(buf);
-    const bf16* Vt = Vs(buf);
-    const bool diag = causal && j == qi;
-
-    for (int c0 = 0; c0 < BT; c0 += CH) {
-      // S = Q K^T and dP = dO V^T: [16 q rows x CH kv columns]
-      float s[NC][4], dp[NC][4];
-#pragma unroll
-      for (int nt = 0; nt < NC; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-        for (int np = 0; np < NC / 2; ++np) {
-          uint32_t kf[4], vf[4];  // b0,b1 of key tiles 2np and 2np+1
-          const int row = c0 + (2 * np + lm / 2) * 8 + lr;
-          ldmatrix_x4(kf, Kt + row * LD + kk * 16 + (lm % 2) * 8);
-          ldmatrix_x4(vf, Vt + row * LD + kk * 16 + (lm % 2) * 8);
-          mma_bf16(s[2 * np], qf[kk], kf[0], kf[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kf[2], kf[3]);
-          mma_bf16(dp[2 * np], df[kk], vf[0], vf[1]);
-          mma_bf16(dp[2 * np + 1], df[kk], vf[2], vf[3]);
-        }
-      }
-
-      // dS, rounded to bf16 as the A operand of dQ += dS K
-      uint32_t dsa[CH / 16][4];
-#pragma unroll
-      for (int nt = 0; nt < NC; ++nt) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = c0 + nt * 8 + c2 + (e & 1);  // kv row in its tile
-          const int row = r0 + g + (e >> 1) * 8;       // q row in its tile
-          float pe = __expf(s[nt][e] * scale - lse_r[e >> 1]);
-          if (diag && col > row) pe = 0.f;  // key after the query: masked
-          ds[e] = pe * (dp[nt][e] - del_r[e >> 1]) * scale;
-        }
-        dsa[nt / 2][(nt % 2) * 2] = pack_bf16(ds[0], ds[1]);
-        dsa[nt / 2][(nt % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
-
-#pragma unroll
-      for (int kk = 0; kk < CH / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < ND / 2; ++np) {
-          uint32_t kf[4];  // b0,b1 of d tiles 2np and 2np+1
-          ldmatrix_x4_trans(kf, Kt + (c0 + kk * 16 + (lm % 2) * 8 + lr) * LD +
-                                    (2 * np + lm / 2) * 8);
-          mma_bf16(dqa[2 * np], dsa[kk], kf[0], kf[1]);
-          mma_bf16(dqa[2 * np + 1], dsa[kk], kf[2], kf[3]);
-        }
-      }
-    }
-    __syncthreads();  // this buffer is refilled two iterations on
+    mbar_init(q_full, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  store_rows<D>(dq + b * dq_sb + h * dq_sh + q0 * dq_st, dq_st, dqa, r0, g,
-                c2);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------------ producer
+    regs_shrink<40>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, 3 * C::QT_BYTES);
+      tma_tile<D, BQ_DQ>(qs, &tq, q_full, q0, h, b);
+      tma_tile<D, BQ_DQ>(dos, &tdo, q_full, q0, h, b);
+      tma_tile<D, BQ_DQ>(os, &to, q_full, q0, h, b);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % C::STAGES;
+        mbar_wait(empty(s), ((j / C::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), C::STAGE_BYTES);
+        tma_tile<D, BK>(ks(s), &tk, full(s), j * BK, kvh, b);
+        tma_tile<D, BK>(vs(s), &tv, full(s), j * BK, kvh, b);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    regs_grow<232>();
+    const int cw = wg - 1;             // this warpgroup's 64 rows of the tile
+    const int w = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int c2 = (lane % 4) * 2;
+    const float sl2 = scale * LOG2E;
+    const uint32_t qa = qs + cw * 64 * 128;
+    const uint32_t da = dos + cw * 64 * 128;
+    const int tr0 = cw * 64 + w * 16 + g;  // tile rows tr0, tr0 + 8
+    const int row0 = q0 + tr0;
+    const long long stat0 = ((long long)b * H + h) * T;
+
+    // -lse in log2 units; a row >= T gets 0, which keeps its P finite (its
+    // dO, hence its dS, is zero, and it is never stored)
+    float nl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      nl[r] = row0 + 8 * r < T ? -lse[stat0 + row0 + 8 * r] * LOG2E : 0.f;
+
+    // delta = rowsum(dO * O) in f32 from the swizzled tiles: 16-byte chunk
+    // c of tile row r sits at chunk c ^ (r % 8) of its 128-byte row
+    mbar_wait(q_full, 0);
+    float del[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tr = tr0 + 8 * r;
+      float acc = 0.f;
+#pragma unroll
+      for (int ch = lane % 4; ch < D / 8; ch += 4) {
+        const uint32_t off =
+            (ch / 8) * BQ_DQ * 128 + tr * 128 + ((ch % 8) ^ (tr % 8)) * 16;
+        const uint4 x = *reinterpret_cast<const uint4*>(smem_raw + (dos + off - raw));
+        const uint4 y = *reinterpret_cast<const uint4*>(smem_raw + (os + off - raw));
+        acc = dot8(x, y, acc);
+      }
+      acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+      acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+      del[r] = acc;
+      if (lane % 4 == 0 && row0 + 8 * r < T) delta[stat0 + row0 + 8 * r] = acc;
+    }
+
+    float dqa[D / 64][32];  // dQ: 64-column blocks, wgmma accumulator layout
+#pragma unroll
+    for (int nb = 0; nb < D / 64; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dqa[nb][i] = 0.f;
+    float sacc[BK / 2], dpacc[BK / 2];  // S, dP of a kv tile
+    uint32_t dsa[BK / 16][4];           // dS as the A operand of dQ += dS K
+    // k16 step kk of a K-major operand: box kk / 4, 32 bytes per step
+    auto a_off = [](int kk) { return (kk / 4) * BQ_DQ * 128 + (kk % 4) * 32; };
+    auto b_off = [](int kk) { return (kk / 4) * BK * 128 + (kk % 4) * 32; };
+
+    for (int j = 0; j < n_kv; ++j) {
+      const int s = j % C::STAGES;
+      mbar_wait(full(s), (j / C::STAGES) & 1);
+
+      // S = Q K^T, then dP = dO V^T ([64 q rows x BK keys]), each its own
+      // commit group: P's exps run while dP is computed
+      fence_regs(sacc);
+      fence_regs(dpacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ss_tile<BK>(sacc, desc_sw128(qa + a_off(kk)),
+                    desc_sw128(ks(s) + b_off(kk)), kk > 0);
+      wgmma_commit();
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        ss_tile<BK>(dpacc, desc_sw128(da + a_off(kk)),
+                    desc_sw128(vs(s) + b_off(kk)), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sacc);
+
+      // P = exp(S * scale - lse); masked: keys after their query (on the
+      // tiles that reach past this warpgroup's first row) and keys >= T
+      const bool edge = (causal && (j + 1) * BK > q0 + cw * 64) ||
+                        (j + 1) * BK > T;
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = exp2_approx(fmaf(sacc[i], sl2, nl[r]));
+        if (edge) {
+          const int key = j * BK + (i / 4) * 8 + c2 + (i & 1);
+          if ((causal && key > row0 + 8 * r) || key >= T) p = 0.f;
+        }
+        sacc[i] = p;
+      }
+      wgmma_wait<0>();
+      fence_regs(dpacc);
+
+      // dS / scale = P (dP - delta), rounded to bf16 once, and dQ += dS K
+      // (K the MN-major B operand) in two halves of the kv tile: the second
+      // half's dS is formed while the first half's product runs
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+#pragma unroll
+        for (int kk = half * BK / 32; kk < (half + 1) * BK / 32; ++kk) {
+#pragma unroll
+          for (int i = 8 * kk; i < 8 * kk + 8; ++i)
+            dpacc[i] = sacc[i] * (dpacc[i] - del[(i >> 1) & 1]);
+          dsa[kk][0] = to_bf16x2(dpacc[8 * kk + 0], dpacc[8 * kk + 1]);
+          dsa[kk][1] = to_bf16x2(dpacc[8 * kk + 2], dpacc[8 * kk + 3]);
+          dsa[kk][2] = to_bf16x2(dpacc[8 * kk + 4], dpacc[8 * kk + 5]);
+          dsa[kk][3] = to_bf16x2(dpacc[8 * kk + 6], dpacc[8 * kk + 7]);
+        }
+#pragma unroll
+        for (int nb = 0; nb < D / 64; ++nb) fence_regs(dqa[nb]);
+        fence_regs(dsa);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = half * BK / 32; kk < (half + 1) * BK / 32; ++kk)
+#pragma unroll
+          for (int nb = 0; nb < D / 64; ++nb)
+            wgmma_rs_n64(dqa[nb], dsa[kk],
+                         desc_sw128(ks(s) + nb * BK * 128 + kk * 2048), 1);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int nb = 0; nb < D / 64; ++nb) fence_regs(dqa[nb]);
+      fence_regs(dsa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty(s));  // this warp is done with stage s
+    }
+
+    // dQ rows < T as bf16, the scale of dS applied here
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + r * 8;
+      if (row >= T) continue;
+      bf16* qrow = dq + b * dq_sb + h * dq_sh + (long long)row * dq_st;
+#pragma unroll
+      for (int nb = 0; nb < D / 64; ++nb)
+#pragma unroll
+        for (int jt = 0; jt < 8; ++jt)
+          *reinterpret_cast<__nv_bfloat162*>(qrow + nb * 64 + jt * 8 + c2) =
+              __floats2bfloat162_rn(dqa[nb][4 * jt + 2 * r] * scale,
+                                    dqa[nb][4 * jt + 2 * r + 1] * scale);
+    }
+  }
 }
 
 template <int D>
@@ -525,26 +608,30 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       st[16], st[17], scale, causal);
   return cudaGetLastError();
 }
-
 template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const void* lse, const void* delta,
-                      void* dq, int B, int H, int Hkv, int T,
+                      const void* dout, const void* o, const void* lse,
+                      void* delta, void* dq, int B, int H, int Hkv, int T,
                       const long long* st, float scale, int causal,
                       cudaStream_t stream) {
-  const size_t smem = Cfg<D>::tiles_bytes;
+  constexpr int BK = Dq<D>::BK;
+  CUtensorMap tq, tk, tv, tdo, to;
+  if (!encode_rows(&tq, q, B, H, T, D, st[0], st[1], st[2], BQ_DQ) ||
+      !encode_rows(&tk, k, B, Hkv, T, D, st[3], st[4], st[5], BK) ||
+      !encode_rows(&tv, v, B, Hkv, T, D, st[6], st[7], st[8], BK) ||
+      !encode_rows(&tdo, dout, B, H, T, D, st[9], st[10], st[11], BQ_DQ) ||
+      !encode_rows(&to, o, B, H, T, D, st[12], st[13], st[14], BQ_DQ))
+    return cudaErrorInvalidValue;
+  const size_t smem = Dq<D>::smem;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  dim3 grid(T / BT, H, B);
-  flash_bwd_dq_kernel<D><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), H, Hkv, T,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8],
-      st[9], st[10], st[11], st[12], st[13], st[14], scale, causal);
+  dim3 grid(H, B, (T + BQ_DQ - 1) / BQ_DQ);
+  flash_bwd_dq_kernel<D><<<grid, DQ_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, to, static_cast<const float*>(lse),
+      static_cast<float*>(delta), static_cast<bf16*>(dq), H, Hkv, T, st[15],
+      st[16], st[17], scale, causal);
   return cudaGetLastError();
 }
 
@@ -580,23 +667,32 @@ int flash_attention_bwd_dkv_bf16(const void* q, const void* k, const void* v,
   return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, T,
                              st, scale, causal, s);
 }
-
-// strides: 15 int64 element strides (batch, head, time) for q, k, v, dO, dQ;
-// otherwise as above.
+// strides: 18 int64 element strides (batch, head, time) for q, k, v, dO, O,
+// dQ; lse is a contiguous [B, H, T] f32 buffer and delta one the kernel
+// writes (rowsum(dO * O), which the dK/dV kernel reads). Otherwise as above:
+// the same checks, made before any tensor map is encoded.
 int flash_attention_bwd_dq_bf16(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* delta, void* dq, int B, int H,
-                                int Hkv, int T, int D,
+                                const void* dout, const void* o,
+                                const void* lse, void* delta, void* dq, int B,
+                                int H, int Hkv, int T, int D,
                                 const long long* strides, float scale,
                                 int causal, void* stream) {
+  const long long* st = strides;
+  const void* rows[6] = {q, k, v, dout, o, dq};
+  if ((D != 64 && D != 128) || T <= 0 || T % 64 || B <= 0 || Hkv <= 0 ||
+      H % Hkv)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 6; ++i)
+    if (!on_device(rows[i]) ||
+        !rows_layout_ok(rows[i], st[3 * i], st[3 * i + 1], st[3 * i + 2]))
+      return (int)cudaErrorInvalidValue;
+  if (!on_device(lse) || !on_device(delta)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 128)
-    return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, T,
-                               strides, scale, causal, s);
-  if (D == 64)
-    return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, T,
-                              strides, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_dq<128>(q, k, v, dout, o, lse, delta, dq, B, H, Hkv, T,
+                               st, scale, causal, s);
+  return (int)launch_dq<64>(q, k, v, dout, o, lse, delta, dq, B, H, Hkv, T,
+                            st, scale, causal, s);
 }
 
 }  // extern "C"

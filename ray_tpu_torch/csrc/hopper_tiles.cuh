@@ -1,6 +1,7 @@
-// Hopper (sm_90a) building blocks shared by the flash-attention forward and
-// dK/dV kernels: TMA tensor maps and loads, mbarriers, wgmma descriptors and
-// instructions, setmaxnreg. The dQ kernel still uses mma_tiles.cuh.
+// Hopper (sm_90a) building blocks shared by the flash-attention forward, dQ
+// and dK/dV kernels: TMA tensor maps and loads, mbarriers, wgmma
+// descriptors and instructions, setmaxnreg. The ragged decode kernel takes
+// its exp2 from here and its mma.sync blocks from mma_tiles.cuh.
 //
 // Tensor maps. The host encodes one CUtensorMap per operand inside the
 // kernels' extern "C" entry points. cuTensorMapEncodeTiled is a driver API

@@ -1,7 +1,8 @@
-// Building blocks of the flash-attention dQ kernel (sm_90a): cp.async
-// staging of bf16 tiles into padded shared memory, ldmatrix fragment loads
-// and the mma.sync m16n8k16 bf16 product with f32 accumulation. The forward
-// and dK/dV kernels use hopper_tiles.cuh (TMA, mbarriers, wgmma).
+// Building blocks of the ragged decode kernel's split pass (sm_90a): 16-byte
+// cp.async copies into padded shared memory, ldmatrix fragment loads and
+// the mma.sync m16n8k16 bf16 product with f32 accumulation. With G <= 8
+// query rows per kv head there is no 64-row wgmma tile to fill. The flash
+// kernels use hopper_tiles.cuh (TMA, mbarriers, wgmma).
 //
 // Fragment conventions (PTX ISA, mma.m16n8k16 with .bf16): for lane l,
 // g = l / 4 and c2 = (l % 4) * 2. An accumulator c[4] holds rows g (c[0..1])

@@ -5,16 +5,16 @@ Counterpart of ray_tpu/ops/flash_attention.py. Three kernels:
 - ``csrc/flash_attention_fwd.cu``: blocked online-softmax attention, causal
   or full, writing O in bf16 and the per-row logsumexp in f32 (``_fwd_call``
   returns both, as in the JAX package);
-- ``csrc/flash_attention_bwd.cu``: the dK/dV kernel and the dQ kernel of the
-  two-kernel flash backward, which recompute p = exp(s - lse) from the
-  saved lse and take delta = rowsum(dO * O) from the caller.
+- ``csrc/flash_attention_bwd.cu``: the dQ kernel and the dK/dV kernel of
+  the two-kernel flash backward, which recompute p = exp(s - lse) from the
+  saved lse. The dQ kernel also computes delta = rowsum(dO * O) and writes
+  it out; the dK/dV kernel, launched after it, reads it.
 
-The forward and the dK/dV kernel are warp-specialised Hopper kernels (TMA
-loads into 128-byte swizzled shared memory under mbarriers, wgmma, built for
-sm_90a only; ``csrc/hopper_tiles.cuh``); the dQ kernel uses mma.sync
-(``csrc/mma_tiles.cuh``). Their tiles are 128 rows, but callers keep the
-rule T % 64 == 0 (``TILE``): a half tile at the end is zero-filled by TMA and
-masked in the kernel.
+All three are warp-specialised Hopper kernels (TMA loads into 128-byte
+swizzled shared memory under mbarriers, wgmma, built for sm_90a only;
+``csrc/hopper_tiles.cuh``). Their tiles are 128 rows (64 kv rows in dQ at
+head_dim 128), but callers keep the rule T % 64 == 0 (``TILE``): a half tile
+at the end is zero-filled by TMA and masked in the kernel.
 
 ``FlashAttention`` (a ``torch.autograd.Function``, the counterpart of the
 ``jax.custom_vjp`` there) ties them together; ``flash_attention`` is its
@@ -46,7 +46,7 @@ KERNEL_DKV = _build.Kernel("flash_attention_bwd",
                            "flash_attention_bwd_dkv_bf16",
                            [_P] * 8 + [_I] * 5 + _TAIL)
 KERNEL_DQ = _build.Kernel("flash_attention_bwd", "flash_attention_bwd_dq_bf16",
-                          [_P] * 7 + [_I] * 5 + _TAIL)
+                          [_P] * 8 + [_I] * 5 + _TAIL)
 
 
 def _repeat_heads(q, k, v):
@@ -78,6 +78,12 @@ def flash_attention_forward_plain(q, k, v, *, causal: bool, scale: float):
     return o.to(q.dtype), lse
 
 
+def backward_delta(o, do):
+    """delta = rowsum(dO * O) in f32, [B, H, T]: the softmax Jacobian term
+    of the backward. The dQ kernel computes the same sum itself."""
+    return (do.float() * o.float()).sum(-1)
+
+
 def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal: bool,
                                    scale: float):
     """Plain version of the backward: (dq [B,H,T,D], dk/dv [B,Hkv,T,D]) in
@@ -89,7 +95,7 @@ def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal: bool,
     Hkv = k.shape[1]
     kr, vr = _repeat_heads(q, k, v)
     dof = do.float()
-    delta = (dof * o.float()).sum(-1, keepdim=True)
+    delta = backward_delta(o, do)[..., None]
     p = torch.exp(_scores(q, kr, causal=causal, scale=scale) - lse)
     dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vr.float())
@@ -165,9 +171,9 @@ def _fwd_kernel(q, k, v, *, causal: bool, scale: float):
 
 
 def _bwd_kernel(q, k, v, o, lse, do, *, causal: bool, scale: float):
-    """(dq, dk, dv) from the dK/dV and dQ kernels. delta = rowsum(dO * O)
-    is one f32 PyTorch reduction here, as the JAX package leaves it to XLA
-    outside its kernels."""
+    """(dq, dk, dv) from the dQ and dK/dV kernels, in that order on one
+    stream: the dQ kernel writes delta = rowsum(dO * O), the dK/dV kernel
+    reads it."""
     _check_kernel_args(q, {"q": q, "k": k, "v": v, "o": o, "do": do})
     B, H, T, D = q.shape
     if o.shape != q.shape or do.shape != q.shape:
@@ -177,35 +183,39 @@ def _bwd_kernel(q, k, v, o, lse, do, *, causal: bool, scale: float):
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("lse must be a contiguous [B, H, T, 1] f32 tensor "
                          "on q's device")
-    delta = (do.float() * o.float()).sum(-1)  # [B, H, T], contiguous
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
+        _dq_launch(q, k, v, do, o, lse, delta, dq, causal=causal, scale=scale)
         _dkv_launch(q, k, v, do, lse, delta, dk, dv, causal=causal,
                     scale=scale)
-        _dq_launch(q, k, v, do, lse, delta, dq, causal=causal, scale=scale)
     return dq, dk, dv
+
+
+def _dq_launch(q, k, v, do, o, lse, delta, dq, *, causal: bool,
+               scale: float):
+    """One launch of the dQ kernel on checked inputs (``_bwd_kernel``); it
+    writes dq and delta, a contiguous [B, H, T] f32 buffer."""
+    B, H, T, D = q.shape
+    KERNEL_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     o.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                     dq.data_ptr(), B, H, k.shape[1], T, D,
+                     _strides(q, k, v, do, o, dq), float(scale),
+                     int(bool(causal)), _stream(q))
 
 
 def _dkv_launch(q, k, v, do, lse, delta, dk, dv, *, causal: bool,
                 scale: float):
-    """One launch of the dK/dV kernel on checked inputs (``_bwd_kernel``)."""
+    """One launch of the dK/dV kernel on checked inputs (``_bwd_kernel``),
+    after the dQ kernel has written delta."""
     B, H, T, D = q.shape
     KERNEL_DKV.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                       lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                       dv.data_ptr(), B, H, k.shape[1], T, D,
                       _strides(q, k, v, do, dk, dv), float(scale),
                       int(bool(causal)), _stream(q))
-
-
-def _dq_launch(q, k, v, do, lse, delta, dq, *, causal: bool, scale: float):
-    """One launch of the dQ kernel on checked inputs (``_bwd_kernel``)."""
-    B, H, T, D = q.shape
-    KERNEL_DQ.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H,
-                     k.shape[1], T, D, _strides(q, k, v, do, dq),
-                     float(scale), int(bool(causal)), _stream(q))
 
 
 def _fwd_call(q, k, v, *, causal: bool, scale: float):

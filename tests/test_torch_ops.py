@@ -286,6 +286,69 @@ def test_ragged_plain_bf16_matches_pallas_interpret():
                                rtol=BF16_TOL)
 
 
+@pytest.mark.parametrize("pps", [1, 3, 4])
+def test_ragged_split_reference_matches_pallas_interpret(pps):
+    """The kernel's split-and-merge arithmetic (plain mirror) against the
+    JAX kernel in interpret mode at f32, nb = 4 pages split 1, 3 (not a
+    divisor: the last split is short) and 4 at a time. Row 0 sits at pos 0,
+    so every split but its first is empty; row 6 names an out-of-range page,
+    which both clamp into the pool."""
+    q, kp, vp, tbl, pos = _ragged_case(np.random.default_rng(20))
+    assert pos[0] == 0 and tbl.shape[1] == 4
+    tbl[6, 2] = kp.shape[0] + 3  # past the pool: clamps to the last page
+    want = jragged.ragged_decode_attention(
+        _j(q), _j(kp), _j(vp), jnp.asarray(tbl), jnp.asarray(pos),
+        impl="kernel", interpret=True)
+    args = (_t(q), _t(kp), _t(vp), torch.from_numpy(tbl), torch.from_numpy(pos))
+    got = tragged.ragged_decode_attention_split_reference(
+        *args, scale=16 ** -0.5, pages_per_split=pps)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+    plain = tops.ragged_decode_attention(*args)  # CPU: the plain version
+    np.testing.assert_allclose(plain.numpy(), _np(want), atol=KERNEL_TOL,
+                               rtol=KERNEL_TOL)
+
+
+def test_ragged_split_count_covers_the_table_without_reading_pos():
+    """ragged_splits is a host function of (B, Hkv, nb, SM count) alone: at
+    least one split, the splits cover the nb pages and none starts past
+    them; at the serving shape (B=8, Hkv=8, nb=32 on 132 SMs) the split
+    pass has at least two CTAs per SM."""
+    import inspect
+
+    assert list(inspect.signature(tragged.ragged_splits).parameters) == [
+        "B", "Hkv", "nb", "sm_count"]
+    for B in (1, 3, 8, 64):
+        for Hkv in (1, 2, 8):
+            for nb in (1, 2, 5, 16, 23, 32, 64):
+                for sms in (1, 78, 132):
+                    S, pps = tragged.ragged_splits(B, Hkv, nb, sms)
+                    assert S >= 1 and pps >= 1
+                    assert S * pps >= nb and (S - 1) * pps < nb
+    S, pps = tragged.ragged_splits(8, 8, 32, 132)
+    assert 8 * 8 * S >= tragged.CTAS_PER_SM * 132 and (S, pps) == (5, 7)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_backward_delta_matches_jax(dtype):
+    """delta = rowsum(dO * O) as the plain backward takes it (and the dQ
+    kernel computes it), against the JAX package's f32 delta
+    (ray_tpu/ops/flash_attention.py::flash_attention_backward) on the same
+    numpy inputs."""
+    rng = np.random.default_rng(21)
+    o = rng.standard_normal((2, 4, 64, 64)).astype(np.float32)
+    do = rng.standard_normal(o.shape).astype(np.float32)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "f32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jo, jdo = _j(o, jdt), _j(do, jdt)
+    want = (jdo.astype(jnp.float32) * jo.astype(jnp.float32)).sum(
+        -1, keepdims=True)
+    got = tflash.backward_delta(_t(o, tdt), _t(do, tdt))
+    assert got.shape == (2, 4, 64) and got.dtype == torch.float32
+    np.testing.assert_allclose(got[..., None].numpy(), _np(want),
+                               atol=KERNEL_TOL, rtol=KERNEL_TOL)
+
+
 def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     """The kernel paths launch or raise — a CPU tensor handed to them is
     refused, and only the device-dispatching entry points take the plain
@@ -357,6 +420,23 @@ def test_kernel_wrappers_refuse_bad_layouts_and_count_nothing(kind, entry):
             B, H, T, _ = q.shape
             lse = torch.zeros(B, H, T, 1)
             tflash._bwd_kernel(q, k, v, q, lse, q, causal=True, scale=0.125)
+    assert [x.launches for x in kernels] == before
+
+
+@pytest.mark.parametrize("kind", ["stride_not_multiple_of_8",
+                                  "base_misaligned"])
+def test_kernel_wrappers_refuse_a_bad_o_layout_and_count_nothing(kind):
+    """The dQ kernel reads O through a tensor map of its own: an O that the
+    map cannot describe is refused with q, k, v and dO sound, before any
+    launch is counted."""
+    (bad, _, _), msg = _bad_layout(kind)  # [1, 4, 64, 64] seen heads-major
+    q = torch.zeros(1, 4, 64, 64, dtype=torch.bfloat16)
+    k = v = torch.zeros(1, 2, 64, 64, dtype=torch.bfloat16)
+    kernels = (tflash.KERNEL, tflash.KERNEL_DKV, tflash.KERNEL_DQ)
+    before = [x.launches for x in kernels]
+    lse = torch.zeros(*q.shape[:3], 1)
+    with pytest.raises(ValueError, match=msg):
+        tflash._bwd_kernel(q, k, v, bad, lse, q, causal=True, scale=0.125)
     assert [x.launches for x in kernels] == before
 
 
@@ -458,8 +538,8 @@ def test_build_names_every_kernel_source(tmp_path, monkeypatch):
     for p in list(_build.CSRC.glob("*.cu")) + list(_build.CSRC.glob("*.cuh")):
         (csrc / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    # both shared headers: mma_tiles.cuh (dQ) and hopper_tiles.cuh (the
-    # forward and dK/dV kernels)
+    # both shared headers: mma_tiles.cuh (ragged decode) and
+    # hopper_tiles.cuh (the flash kernels; ragged decode's exp2)
     for header in ("mma_tiles.cuh", "hopper_tiles.cuh"):
         before = {n: _build._target(n) for n in _build.sources()}
         with open(csrc / header, "a") as f:
