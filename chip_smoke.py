@@ -29,6 +29,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      counted launch is two device kernels (split pass and merge pass), and
      the time covers both; each row prints the split count and the pages
      per split;
+   - untimed, at GPT-2's shapes (phase 9): the forward on [1,12,1024,64]
+     causal with as many kv heads as q heads, and ragged decode with
+     Hkv=12, G=1, Dh=64, P=64 over a 16-page table;
    - flash backward (dQ and dK/dV kernels) on [4,32,2048,64] causal
      (training), [1,32,2048,128] causal and [1,32,1024,64] full, timed,
      and on one- and two-tile sequences untimed; each gradient within
@@ -44,7 +47,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    max_len 2048) serves 8 concurrent greedy requests with prompts of 5 to
    1500 tokens and max_tokens 32. Launch counts are zeroed just before and
    read just after; both kernels must have run, the ragged one 32 times per
-   decode step.
+   decode step, and no backward kernel. Every path below counts all four
+   kernels too.
 5. Llama-3.2-1B (tied, random init, f32 params): loss and gradients of one
    [1, 2049] token row through the kernels, the plain versions and the
    plain versions in f32; per gradient group the kernels agree with the
@@ -54,7 +58,29 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    through ``ray_tpu_torch.benchmarks.train_step.measure``. Losses finite
    and falling; launch counts zeroed just before the timed steps and read
    just after: 32 forward (16 layers, forward and remat recompute), 16
-   dK/dV and 16 dQ launches a step.
+   dK/dV and 16 dQ launches a step, no ragged one.
+7. Mixtral-8x7B at full width, 16 of its 32 layers (random init from a
+   seed, bf16; the 32 layers' 93.4 GB do not fit the card): phase 3's
+   check (one prefill at bucket 1024, 4 teacher-forced ragged decode
+   steps, kernels against plain versions and both against f32, phase 3's
+   bounds), with the MoE mlp in every layer. The two bf16 runs replay the
+   f32 run's routing call by call, so that a near-tied router choice cannot
+   flip between runs and compound with depth; per step, the share of
+   (token, layer, choice) expert assignments on which the kernel and plain
+   runs' own routing agrees.
+8. Serving Mixtral, the slice's main path: phase 4's engine and 8 requests
+   through ``LLMEngine.from_config(model_family="mixtral")`` at 16 layers;
+   launch counts zeroed just before and read just after: flash = 16 x
+   prefills, ragged = 16 x decode steps, no backward kernel.
+9. The other families and the attention dispatcher on the card: GPT-2
+   124M served (4 requests, max_len 1024: the kernels at head_dim 64,
+   G = 1, learned positions); ViT-L/16 at batch 8 x 224² (T = 197), one
+   forward and one ``loss_fn`` gradient in bf16 against f32 by cosine,
+   with no flash launch (T = 197 takes the dense path); and
+   ``transformer.forward`` (Llama-3.2-1B) with ``attn_impl=None`` at
+   T = 100 bf16 and T = 128 f32 (the dense path, no launch) and T = 128
+   bf16 (the forward kernel, one launch a layer), each against the plain
+   path within phase 3's bounds.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -92,12 +118,29 @@ GRAD_COS_MIN = 0.99        # phase 5: per gradient group, kernels vs plain
 LOGIT_MAX_ABS = 0.6
 F32_ERR_RATIO = 2.0
 SEED = 0
+# phase 7-8: Mixtral-8x7B's depth cut to fit one 80 GB card in bf16 (46.96 GB
+# of weights at 16 layers; 93.4 GB at the published 32)
+MIXTRAL_LAYERS = 16
 EDGE_CASES = [(T, D, causal) for T in (64, 192, 2048) for D in (64, 128)
               for causal in (True, False)]
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def zero(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def counts(kernels) -> dict:
+    return {k.symbol: k.launches for k in kernels}
+
+
+def cosine(torch, a, b) -> float:
+    return torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.float().flatten(), dim=0).item()
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -174,10 +217,9 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 # ------------------------------------------------------------------ phase 2
 
 def check_flash(torch, gen, T: int, causal: bool, timed: bool,
-                D: int = 128, B: int = 1) -> dict:
+                D: int = 128, B: int = 1, H: int = 32, Hkv: int = 8) -> dict:
     from ray_tpu_torch.ops import flash_attention as fa
 
-    H, Hkv = 32, 8
     dev = torch.device("cuda")
     # [B, T, H, D] activations seen heads-major, exactly as ops.attention
     # hands them to the kernel on the prefill path
@@ -205,7 +247,8 @@ def check_flash(torch, gen, T: int, causal: bool, timed: bool,
     flops = 4.0 * B * H * D * pairs
     nbytes = 2.0 * (2 * B * H * T * D + 2 * B * Hkv * T * D) + 4.0 * B * H * T
     bms, by = bound_ms(nbytes, flops)
-    row = {"case": f"flash B={B} T={T} D={D} causal={causal}",
+    heads = "" if (H, Hkv) == (32, 8) else f" H={H} Hkv={Hkv}"
+    row = {"case": f"flash B={B} T={T} D={D} causal={causal}{heads}",
            "shape": [B, H, T, D],
            "kv_heads": Hkv, "max_abs_err": err, "lse_max_abs_err": lse_err,
            "tolerance": ATOL, "lse_tolerance": LSE_TOL, "bound_ms": bms,
@@ -309,8 +352,9 @@ def check_flash_bwd(torch, gen, B: int, T: int, D: int, causal: bool,
     return row
 
 
-def ragged_inputs(torch, gen, Dh: int = 128, P: int = 64, N: int = 257):
-    B, Hkv, G = 8, 8, 4
+def ragged_inputs(torch, gen, Dh: int = 128, P: int = 64, N: int = 257,
+                  Hkv: int = 8, G: int = 4):
+    B = 8
     dev = torch.device("cuda")
     q = torch.randn((B, Hkv, G, Dh), generator=gen, device=dev,
                     dtype=torch.bfloat16)
@@ -379,20 +423,78 @@ def check_ragged(torch, inputs, nb: int, timed: bool, pos=None,
 
 # ------------------------------------------------------------------ phase 3
 
-def check_model(torch) -> dict:
-    """Llama-3-8B, three runs on the same random weights and tokens: the
-    kernels (bf16), the plain versions (bf16), and the plain versions with
-    f32 compute as the yardstick both bf16 runs are measured against."""
+class RoutingReplay:
+    """Record and replay of ``ops.topk_routing`` (the models call it
+    through the ops package). While active, the run named ``run`` gets, call
+    by call, the routing the ``source`` run made in the same call; the
+    source run records its own. With random weights the router's top-k is
+    decided by small margins, so a choice that flipped between two runs
+    would change that token's mlp outright and, through attention, every
+    later token in the deeper layers: the model check would measure that
+    drift, not the kernels. Each call also keeps the run's own, unforced
+    choices ([N, E]: which experts kept the row) for the agreement
+    statistic."""
+
+    def __init__(self, torch, source: str = "f32"):
+        from ray_tpu_torch import ops
+
+        self.torch, self.ops, self.real = torch, ops, ops.topk_routing
+        self.source, self.run = source, None
+        self.recorded: list = []  # the source run's RoutingInfo, by call
+        self.kept: dict = {}      # run -> its own [N, E] choices, by call
+
+    def __enter__(self):
+        def replayed(router_logits, *, num_experts, k, capacity_factor=1.25):
+            own = self.real(router_logits, num_experts=num_experts, k=k,
+                            capacity_factor=capacity_factor)
+            kept = self.kept.setdefault(self.run, [])
+            kept.append(own.dispatch.sum(-1) > 0)
+            if self.run == self.source:
+                self.recorded.append(own)
+                return own
+            forced = self.recorded[len(kept) - 1]
+            if forced.dispatch.shape != own.dispatch.shape:
+                fail(f"routing replay: call {len(kept) - 1} of run "
+                     f"{self.run} routes {tuple(own.dispatch.shape)}, the "
+                     f"{self.source} run {tuple(forced.dispatch.shape)}")
+            return forced
+
+        self.ops.topk_routing = replayed
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.topk_routing = self.real
+
+    def agreement(self, a: str, b: str, calls: slice, rows: slice) -> float:
+        """Share of run a's kept (row, expert) assignments in `calls` that
+        run b's own routing also made."""
+        same = total = 0
+        for x, y in zip(self.kept[a][calls], self.kept[b][calls]):
+            x, y = x[rows], y[rows]
+            same += int((x & y).sum())
+            total += int(x.sum())
+        return same / total
+
+
+def check_model(torch, cfg, label: str) -> dict:
+    """Three runs of `cfg` on the same random weights and tokens: the
+    plain versions with f32 compute, the kernels (bf16) and the plain
+    versions (bf16), held to the f32 run as the yardstick. For a MoE config
+    the bf16 runs replay the f32 run's routing (``RoutingReplay``), and
+    each row also reports the share of expert assignments on which the
+    kernel and plain runs' own routing agree, over the real rows (the
+    prompt's tokens; the one live decode row) and over all rows the layers
+    routed (the bucket's padding; the 7 idle slots)."""
+    import contextlib
     import dataclasses
 
     import numpy as np
 
     from ray_tpu_torch.benchmarks.device_profile import busy_share
-    from ray_tpu_torch.models import decoding, llama, transformer
+    from ray_tpu_torch.models import decoding, transformer
     from ray_tpu_torch.models import decoding_paged as dp
 
     dev = torch.device("cuda")
-    cfg = llama.llama_config("8b")
     cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     params = transformer.init(gen, cfg, dev, dtype=cfg.dtype)
@@ -401,14 +503,13 @@ def check_model(torch) -> dict:
     padded = np.zeros((1, bucket), np.int64)
     padded[0, :n] = rng.integers(0, cfg.vocab_size, size=n)
     tokens = torch.as_tensor(padded, device=dev)
-    runs = {"kernel": (cfg, None), "plain": (cfg, "reference"),
-            "f32": (cfg32, "reference")}
-    logits, kvs, states = {}, {}, {}
-    for name, (c, impl) in runs.items():
-        logits[name], kvs[name] = decoding.prefill(params, tokens, n, c,
-                                                   attn_impl=impl)
+    # the f32 run first: under replay it routes for the other two
+    runs = {"f32": (cfg32, "reference"), "kernel": (cfg, None),
+            "plain": (cfg, "reference")}
+    routing = RoutingReplay(torch) if cfg.moe is not None else None
+    logits, kvs, states, rows = {}, {}, {}, []
 
-    def compare(what):
+    def compare(what, real_rows):
         k, p, t = (logits[x].float() for x in ("kernel", "plain", "f32"))
         if not all(torch.isfinite(x).all() for x in (k, p, t)):
             fail(f"model {what}: non-finite logits")
@@ -418,45 +519,79 @@ def check_model(torch) -> dict:
                "max_abs_diff": (k - p).abs().max().item(),
                "kernel_rel_err_vs_f32": ((k - t).norm() / t.norm()).item(),
                "plain_rel_err_vs_f32": ((p - t).norm() / t.norm()).item()}
-        if row["cosine"] < LOGIT_COS_MIN or row["max_abs_diff"] > LOGIT_MAX_ABS \
+        if routing is not None:  # this step's calls, one a layer
+            calls = slice(len(rows) * cfg.n_layers,
+                          (len(rows) + 1) * cfg.n_layers)
+            row["routing_agree"] = routing.agreement("kernel", "plain", calls,
+                                                     real_rows)
+            row["routing_agree_all_rows"] = routing.agreement(
+                "kernel", "plain", calls, slice(None))
+            if not rows:  # prefill: by layer, one call each
+                row["routing_agree_by_layer"] = [
+                    routing.agreement("kernel", "plain", slice(i, i + 1),
+                                      real_rows)
+                    for i in range(cfg.n_layers)]
+        if row["cosine"] < LOGIT_COS_MIN \
+                or row["max_abs_diff"] > LOGIT_MAX_ABS \
                 or row["kernel_rel_err_vs_f32"] > \
                 F32_ERR_RATIO * row["plain_rel_err_vs_f32"] + 1e-3:
             fail(f"model {what}: {row}")
         return row
 
-    rows = [compare("prefill")]
-    first = int(torch.argmax(logits["f32"]))
-    pages = np.arange(1, max_len // P + 1, dtype=np.int32)
-    for name, (c, impl) in runs.items():
-        states[name] = dp.init_paged_state(c, 8, max_len,
-                                           8 * (max_len // P) + 1, P, dev)
-        dp.insert_sequence_paged(states[name], 0, kvs.pop(name), n, first,
-                                 pages, c)
-    for step in range(4):
-        pos = n + step
-        bound = 1 << (pos // P).bit_length()  # pow2 >= live pages (engine's)
+    with routing if routing is not None else contextlib.nullcontext():
         for name, (c, impl) in runs.items():
-            states[name], lg = dp.decode_step_paged_ragged(
-                params, states[name], c, bound,
-                impl=impl)
-            logits[name] = lg[0]
-        rows.append(compare(f"decode {step}"))
-        nxt = torch.argmax(logits["f32"]).int().reshape(1).expand(8)
-        for name in runs:  # teacher-forced from the f32 run
-            decoding.commit_tokens(states[name], nxt)
+            if routing is not None:
+                routing.run = name
+            logits[name], kvs[name] = decoding.prefill(params, tokens, n, c,
+                                                       attn_impl=impl)
+        rows.append(compare("prefill", slice(0, n)))
+        first = int(torch.argmax(logits["f32"]))
+        pages = np.arange(1, max_len // P + 1, dtype=np.int32)
+        for name, (c, impl) in runs.items():
+            states[name] = dp.init_paged_state(c, 8, max_len,
+                                               8 * (max_len // P) + 1, P, dev)
+            dp.insert_sequence_paged(states[name], 0, kvs.pop(name), n, first,
+                                     pages, c)
+        for step in range(4):
+            pos = n + step
+            bound = 1 << (pos // P).bit_length()  # pow2 >= live pages
+            for name, (c, impl) in runs.items():
+                if routing is not None:
+                    routing.run = name
+                states[name], lg = dp.decode_step_paged_ragged(
+                    params, states[name], c, bound,
+                    impl=impl)
+                logits[name] = lg[0]
+            rows.append(compare(f"decode {step}", slice(0, 1)))
+            nxt = torch.argmax(logits["f32"]).int().reshape(1).expand(8)
+            for name in runs:  # teacher-forced from the f32 run
+                decoding.commit_tokens(states[name], nxt)
+    del routing
     # host wall time of one kernel-path decode step (batch of 8 rows, one
-    # live) against the device time of its kernels
+    # live; its own routing, as served) against the device time of its
+    # kernels
     busy = busy_share(lambda: dp.decode_step_paged_ragged(
         params, states["kernel"], cfg, 1 << ((n + 4) // P).bit_length()))
-    return {"model": "llama-3-8b random init bf16", "prompt": n,
-            "bucket": bucket, "cos_min": LOGIT_COS_MIN,
-            "max_abs_bound": LOGIT_MAX_ABS, "f32_err_ratio": F32_ERR_RATIO,
+    return {"model": label, "prompt": n, "bucket": bucket,
+            "cos_min": LOGIT_COS_MIN, "max_abs_bound": LOGIT_MAX_ABS,
+            "f32_err_ratio": F32_ERR_RATIO,
+            "routing": "replayed from the f32 run" if cfg.moe else None,
             "steps": rows, "decode_step_profile": busy}
 
 
 # ------------------------------------------------------------------ phase 4
 
-def serve(torch, kernels) -> dict:
+SERVE_LENGTHS = [5, 64, 65, 300, 700, 1000, 1300, 1500]
+
+
+def serve(torch, kernels, family: str = "llama", model_id: str = "8b",
+          model_kwargs: dict | None = None, lengths=SERVE_LENGTHS,
+          max_len: int = 2048) -> dict:
+    """Greedy requests with prompts of `lengths` tokens and max_tokens 32
+    through ``LLMEngine.from_config`` of a model family (paged KV, page 64,
+    8 slots). The counts of `kernels` are zeroed just before the requests
+    and read just after: flash forward = layers x prefills, ragged = layers
+    x decode steps, and no backward kernel."""
     import numpy as np
 
     from ray_tpu_torch.llm import (LLMConfig, LLMEngine, ModelLoadingConfig,
@@ -464,25 +599,24 @@ def serve(torch, kernels) -> dict:
 
     t0 = time.perf_counter()
     eng = LLMEngine.from_config(LLMConfig(
-        model_family="llama",
-        model_loading_config=ModelLoadingConfig(model_id="8b"),
+        model_family=family,
+        model_loading_config=ModelLoadingConfig(model_id=model_id),
+        model_kwargs=dict(model_kwargs or {}),
         engine_kwargs={"kv_layout": "paged", "page_size": 64, "max_slots": 8,
-                       "max_len": 2048, "seed": SEED}))
+                       "max_len": max_len, "seed": SEED}))
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     try:
         rng = np.random.default_rng(SEED + 1)
-        lengths = [5, 64, 65, 300, 700, 1000, 1300, 1500]
         prompts = [rng.integers(0, eng.cfg.vocab_size, size=n).tolist()
                    for n in lengths]
         params = SamplingParams(max_tokens=32, temperature=0.0)
-        for k in kernels:
-            k.launches = 0  # the main path starts here
+        zero(kernels)  # the main path starts here
         t0 = time.perf_counter()
         reqs = [eng.submit(p, params) for p in prompts]
         outs = [list(r) for r in reqs]
         wall = time.perf_counter() - t0
-        launches = {k.symbol: k.launches for k in kernels}
+        launches = counts(kernels)
         st = eng.stats()
         n_layers, vocab = eng.cfg.n_layers, eng.cfg.vocab_size
     finally:
@@ -492,8 +626,12 @@ def serve(torch, kernels) -> dict:
             fail(f"request with prompt {n}: {len(out)} tokens, ids {out[:4]}")
     steps = st["decode_steps"]
     for sym, count in launches.items():
-        if count <= 0:
+        served = sym in ("flash_attention_fwd_bf16",
+                         "ragged_paged_attention_bf16")
+        if served and count <= 0:
             fail(f"{sym} never launched on the main path")
+        if not served and count:  # serving runs no backward
+            fail(f"{sym} launched {count} times while serving")
     rag = launches["ragged_paged_attention_bf16"]
     if rag != n_layers * steps:
         fail(f"ragged launches {rag} != {n_layers} x {steps} decode steps")
@@ -501,7 +639,9 @@ def serve(torch, kernels) -> dict:
     if flash != n_layers * st["prefills"]:
         fail(f"flash launches {flash} != {n_layers} x {st['prefills']} "
              "prefills")
-    return {"requests": len(outs), "prompt_lengths": lengths,
+    return {"model": f"{family} {model_id} {model_kwargs or ''}".strip(),
+            "n_layers": n_layers, "requests": len(outs),
+            "prompt_lengths": list(lengths),
             "tokens_out": sum(len(o) for o in outs), "wall_s": wall,
             "engine_build_s": build_s,
             "prefill_ms_mean": 1e3 * st["prefill_seconds"] / st["prefills"],
@@ -566,23 +706,22 @@ def check_model_grads(torch, kernels) -> dict:
                     "reference")}
     loss, flat, launches = {}, {}, {}
     for name, (c, impl) in runs.items():
-        for k in kernels:
-            k.launches = 0
+        zero(kernels)
         value = transformer.loss_fn(params, tokens, c, attn_impl=impl)
         grads = dict(zip(paths, torch.autograd.grad(value, leaves)))
         torch.cuda.synchronize()
-        launches[name] = {k.symbol: k.launches for k in kernels}
+        launches[name] = counts(kernels)
         loss[name] = value.item()
         flat[name] = {g: torch.cat([grads[p].float().flatten() for p in ps])
                       for g, ps in GRAD_GROUPS.items()}
         del grads
-    for name, counts in launches.items():
+    for name, run_counts in launches.items():
         for k in kernels:
             want = cfg.n_layers if name == "kernel" else 0
             if k.symbol != "flash_attention_fwd_bf16" and \
-                    counts[k.symbol] != want:
+                    run_counts[k.symbol] != want:
                 fail(f"model grads, {name} run: {k.symbol} launched "
-                     f"{counts[k.symbol]} times, expected {want}")
+                     f"{run_counts[k.symbol]} times, expected {want}")
     rows = {}
     t = loss["f32"]
     for g in GRAD_GROUPS:
@@ -623,17 +762,11 @@ def train(torch, kernels) -> dict:
     from ray_tpu_torch.benchmarks.train_step import measure
 
     cfg = train_config()
-    counts = {}
-
-    def zero():
-        for k in kernels:
-            k.launches = 0  # the main path starts here
-
-    def read():
-        counts.update({k.symbol: k.launches for k in kernels})
-
-    res = measure(cfg, batch=4, seq=2048, steps=10, before_timed=zero,
-                  after_timed=read, profile=True)
+    got = {}
+    res = measure(cfg, batch=4, seq=2048, steps=10,
+                  before_timed=lambda: zero(kernels),  # the main path starts
+                  after_timed=lambda: got.update(counts(kernels)),
+                  profile=True)
     losses = res["losses"]
     if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
         fail(f"training losses not finite and falling: {losses}")
@@ -641,15 +774,122 @@ def train(torch, kernels) -> dict:
     # forward plus its recompute under remat, one dK/dV and one dQ per layer
     want = {"flash_attention_fwd_bf16": 2 * L * steps,
             "flash_attention_bwd_dkv_bf16": L * steps,
-            "flash_attention_bwd_dq_bf16": L * steps}
-    if counts != want:
-        fail(f"training launches {counts}, expected {want}")
-    res["launches"] = counts
+            "flash_attention_bwd_dq_bf16": L * steps,
+            "ragged_paged_attention_bf16": 0}
+    if got != want:
+        fail(f"training launches {got}, expected {want}")
+    res["launches"] = got
     res["config"] = {"model": "llama-3.2-1b (tied, random init)",
                      "n_layers": L, "d_model": cfg.d_model,
                      "vocab_size": cfg.vocab_size, "remat": cfg.remat,
                      "remat_policy": cfg.remat_policy}
     return res
+
+
+# ------------------------------------------------------------------ phase 9
+
+def check_vit(torch, kernels) -> dict:
+    """ViT-L/16 at its published widths and depth, batch 8 x 224² (T =
+    197, head_dim 64), random init from a seed with f32 params: forward
+    logits and the gradient of every param from one ``loss_fn`` in bf16
+    compute against f32 compute, by cosine (logits: LOGIT_COS_MIN, the
+    whole gradient: GRAD_COS_MIN). T = 197 is no multiple of 64, so no
+    flash kernel may launch."""
+    import dataclasses
+
+    from ray_tpu_torch.models import vit
+
+    dev = torch.device("cuda")
+    cfg = vit.vit_config("l16")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = vit.init(gen, cfg, dev)
+    images = torch.randn((8, cfg.image_size, cfg.image_size, 3),
+                         generator=gen, device=dev)
+    labels = torch.randint(0, cfg.num_classes, (8,), generator=gen,
+                           device=dev)
+
+    def flat(tree):
+        for v in tree.values():
+            yield from (flat(v) if isinstance(v, dict) else [v])
+
+    leaves = [x.requires_grad_() for x in flat(params)]
+    zero(kernels)  # the ViT path starts here
+    logits, grads = {}, {}
+    for name, dt in (("bf16", cfg.dtype), ("f32", torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        with torch.no_grad():
+            logits[name] = vit.forward(params, images, c)
+        loss = vit.loss_fn(params, (images, labels), c)
+        grads[name] = torch.cat([g.float().flatten() for g in
+                                 torch.autograd.grad(loss, leaves)])
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    row = {"model": "vit-l/16 random init, f32 params", "batch": 8,
+           "tokens": cfg.n_patches + 1, "head_dim": cfg.head_dim,
+           "logits_cosine": cosine(torch, logits["bf16"], logits["f32"]),
+           "grad_cosine": cosine(torch, grads["bf16"], grads["f32"]),
+           "grad_norm": grads["bf16"].norm().item(),
+           "cos_min": LOGIT_COS_MIN, "grad_cos_min": GRAD_COS_MIN,
+           "launches": launches}
+    if not all(torch.isfinite(x).all() for x in (*logits.values(),
+                                                  *grads.values())):
+        fail(f"vit: non-finite logits or gradients: {row}")
+    if row["logits_cosine"] < LOGIT_COS_MIN or row["grad_norm"] == 0 \
+            or row["grad_cosine"] < GRAD_COS_MIN:
+        fail(f"vit: bf16 against f32: {row}")
+    if any(launches.values()):
+        fail(f"vit at T = 197 launched a flash kernel: {launches}")
+    return row
+
+
+def check_dispatch(torch, kernels) -> dict:
+    """``transformer.forward`` with ``attn_impl=None`` on the card where the
+    kernels fit and where they do not (Llama-3.2-1B widths and depth, f32
+    params): T = 100 in bf16 and T = 128 in f32 take the dense path and
+    launch nothing; T = 128 in bf16 launches the forward kernel once a
+    layer. Each against the plain path by phase 3's bounds on the logits
+    (cosine, max abs difference)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.models import transformer
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
+                              cfg, dev)
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for T, dt, want in ((100, torch.bfloat16, 0), (128, torch.float32, 0),
+                        (128, torch.bfloat16, cfg.n_layers)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(1, T)),
+                                 device=dev)
+        zero(kernels)  # this case's path starts here
+        with torch.no_grad():
+            auto, _ = transformer.forward(params, tokens, c)
+            torch.cuda.synchronize()
+            launches = counts(kernels)
+            plain, _ = transformer.forward(params, tokens, c,
+                                           attn_impl="reference")
+        row = {"T": T, "dtype": str(dt).replace("torch.", ""),
+               "launches": launches, "cosine": cosine(torch, auto, plain),
+               "max_abs_diff": (auto.float() - plain.float()).abs().max()
+               .item()}
+        rows.append(row)
+        if not torch.isfinite(auto.float()).all():
+            fail(f"dispatch {row}: non-finite logits")
+        if launches != {k.symbol: (want if k.symbol ==
+                                   "flash_attention_fwd_bf16" else 0)
+                        for k in kernels}:
+            fail(f"dispatch {row}: expected {want} forward launches")
+        if row["cosine"] < LOGIT_COS_MIN or row["max_abs_diff"] > \
+                LOGIT_MAX_ABS:
+            fail(f"dispatch {row}: against the plain path")
+    return {"model": "llama-3.2-1b (tied, random init), attn_impl=None",
+            "cos_min": LOGIT_COS_MIN, "max_abs_bound": LOGIT_MAX_ABS,
+            "cases": rows}
 
 
 def main() -> int:
@@ -717,6 +957,13 @@ def main() -> int:
     for Dh, P in ((64, 16), (128, 32)):
         rin = ragged_inputs(torch, gen, Dh=Dh, P=P, N=33)
         checks.append(check_ragged(torch, rin, 4, timed=False))
+    # GPT-2's shapes (phase 9): MHA at head_dim 64, G = 1 in decode
+    checks.append(check_flash(torch, gen, 1024, True, timed=False, D=64,
+                              H=12, Hkv=12))
+    rin = ragged_inputs(torch, gen, Dh=64, P=64, N=129, Hkv=12, G=1)
+    checks.append(check_ragged(torch, rin, 16, False, label=" Hkv=12 G=1 "
+                               "Dh=64"))
+    del rin
     # the backward at the training path's shape (Llama-3.2-1B, batch 4),
     # at head_dim 128, full attention, and a one-tile sequence
     checks += [check_flash_bwd(torch, gen, 4, 2048, 64, True, timed=True),
@@ -728,12 +975,18 @@ def main() -> int:
     print(json.dumps({"card": card, "kernel_checks": checks}), flush=True)
 
     flash_kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ]
-    launches = {"serve": {}, "train": {}}
+    # every path zeroes and reads all four counts
+    all_kernels = flash_kernels + [ra.KERNEL]
+    launches = {"serve": {}, "train": {}, "serve_mixtral": {},
+                "serve_gpt2": {}, "vit": {}}
     if not args.only_kernels:
-        model = check_model(torch)
+        from ray_tpu_torch.models import llama, mixtral
+
+        model = check_model(torch, llama.llama_config("8b"),
+                            "llama-3-8b random init bf16")
         torch.cuda.empty_cache()  # phase 3's model and pools are gone
         print(json.dumps({"card": card, "model_check": model}), flush=True)
-        serving = serve(torch, [fa.KERNEL, ra.KERNEL])
+        serving = serve(torch, all_kernels)
         launches["serve"] = serving["launches"]
         torch.cuda.empty_cache()
         print(json.dumps({"card": card, "serve": serving}), flush=True)
@@ -743,7 +996,7 @@ def main() -> int:
         grads = check_model_grads(torch, flash_kernels)
         torch.cuda.empty_cache()
         print(json.dumps({"card": card, "model_grads": grads}), flush=True)
-        training = train(torch, flash_kernels)
+        training = train(torch, all_kernels)
         launches["train"] = training["launches"]
         print(json.dumps({"card": card, "train": training}), flush=True)
         print(f"train on {card}: step {training['step_ms']:.3f} ms, "
@@ -751,6 +1004,43 @@ def main() -> int:
               f"{training['mfu_6nd']:.4f}, peak memory "
               f"{training['max_memory_allocated'] / 2**30:.2f} GiB",
               flush=True)
+        del training
+        torch.cuda.empty_cache()
+        # phase 7: Mixtral-8x7B, full width, 16 of 32 layers
+        moe_model = check_model(
+            torch, mixtral.mixtral_config("8x7b", n_layers=MIXTRAL_LAYERS),
+            f"mixtral-8x7b {MIXTRAL_LAYERS} of 32 layers random init bf16")
+        torch.cuda.empty_cache()
+        print(json.dumps({"card": card, "moe_model_check": moe_model}),
+              flush=True)
+        # phase 8: serving Mixtral, the slice's main path
+        moe_serving = serve(torch, all_kernels, "mixtral", "8x7b",
+                            {"n_layers": MIXTRAL_LAYERS})
+        launches["serve_mixtral"] = moe_serving["launches"]
+        torch.cuda.empty_cache()
+        print(json.dumps({"card": card, "serve_mixtral": moe_serving}),
+              flush=True)
+        print(f"serve mixtral-8x7b ({MIXTRAL_LAYERS} layers) on {card}: "
+              f"prefill {moe_serving['prefill_ms_mean']:.3f} ms mean, decode "
+              f"step {moe_serving['decode_step_ms_mean']:.3f} ms mean, "
+              f"{moe_serving['tokens_per_s']:.1f} tokens/s", flush=True)
+        # phase 9: GPT-2 served, ViT-L/16, the dispatcher on the card
+        gpt2_serving = serve(torch, all_kernels, "gpt2", "124m",
+                             lengths=[5, 65, 300, 900], max_len=1024)
+        launches["serve_gpt2"] = gpt2_serving["launches"]
+        torch.cuda.empty_cache()
+        vit_check = check_vit(torch, all_kernels)
+        launches["vit"] = vit_check["launches"]
+        torch.cuda.empty_cache()
+        dispatch = check_dispatch(torch, all_kernels)
+        torch.cuda.empty_cache()
+        print(json.dumps({"card": card, "serve_gpt2": gpt2_serving,
+                          "vit": vit_check, "dispatch": dispatch}),
+              flush=True)
+        print(f"serve gpt2-124m on {card}: prefill "
+              f"{gpt2_serving['prefill_ms_mean']:.3f} ms mean, decode step "
+              f"{gpt2_serving['decode_step_ms_mean']:.3f} ms mean, "
+              f"{gpt2_serving['tokens_per_s']:.1f} tokens/s", flush=True)
 
     def case(name):
         return next(c for c in checks if c["case"] == name)
@@ -784,8 +1074,8 @@ def main() -> int:
         kernels.append({**extra.get(kern.symbol, {}),
             "name": kern.symbol, "route": "cuda",
             "source": f"ray_tpu_torch/csrc/{src}", "replaces": rep,
-            "launches": launches[path].get(kern.symbol, 0), "path": path,
-            "launches_by_path": {p: n.get(kern.symbol, 0)
+            "launches": launches[path].get(kern.symbol), "path": path,
+            "launches_by_path": {p: n.get(kern.symbol)  # null: not run
                                  for p, n in launches.items()},
             "case": c["case"], "max_abs_err": err, "ms": ms,
             "plain_ms": c["plain_ms"], "bound_ms": bms, "bound_by": by,

@@ -1,9 +1,11 @@
 """LLMConfig — the config object the engine is built from (own copy of
 ray_tpu/llm/config.py's LLMConfig and ModelLoadingConfig, without jax).
 
-``build_model`` returns random weights drawn on the device when
-``model_source`` is None, as the JAX package does, and loads an npz
-checkpoint otherwise. Serving stores the weights once in ``cfg.dtype``.
+``build_model`` builds a config of the gpt2, llama or mixtral family
+(the JAX package's factory table) and returns random weights
+drawn on the device when ``model_source`` is None, as the JAX package
+does, and loads an npz checkpoint otherwise. Serving stores the weights
+once in ``cfg.dtype``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ class ModelLoadingConfig:
 @dataclass
 class LLMConfig:
     model_loading_config: ModelLoadingConfig = field(default_factory=ModelLoadingConfig)
+    # the family of the built-in configs: gpt2, llama or mixtral
     model_family: str = "llama"
     model_kwargs: dict = field(default_factory=dict)
     # max_slots, max_len, min_bucket, seed, kv_layout, page_size, ...;
@@ -35,16 +38,17 @@ class LLMConfig:
         caller asks for the CPU)."""
         import torch
 
+        from ray_tpu_torch import models
         from ray_tpu_torch._device import resolve_device
-        from ray_tpu_torch.models import convert, llama, transformer
+        from ray_tpu_torch.models import convert, transformer
 
-        if self.model_family != "llama":
-            raise NotImplementedError(
-                f"model family {self.model_family!r} is not ported yet "
-                "(ROADMAP.md Queue 1, 'MoE and the other model families')")
+        factory = {"gpt2": models.gpt2_config, "llama": models.llama_config,
+                   "mixtral": models.mixtral_config}.get(self.model_family)
+        if factory is None:
+            raise ValueError("model_family must be 'gpt2', 'llama' or "
+                             f"'mixtral', got {self.model_family!r}")
         device = resolve_device(device)
-        cfg = llama.llama_config(self.model_loading_config.model_id,
-                                 **self.model_kwargs)
+        cfg = factory(self.model_loading_config.model_id, **self.model_kwargs)
         src = self.model_loading_config.model_source
         if src:
             from ray_tpu_torch.llm import checkpoint_io

@@ -2,8 +2,13 @@
 
 ``prefill`` runs one prompt at its bucketed length and returns per-layer KV
 for the paged pool (models/decoding_paged.py). Its attention goes through
-``ops.attention``: the flash kernel on the card. LoRA, ``verify_step`` and
-the slot-layout decode are not ported yet (ROADMAP.md Queue 1).
+``ops.attention``: the flash kernel on the card, where every bucket is a
+multiple of 64. ``_mlp_block`` is the dense mlp or, for a MoE config, the
+routed experts (``transformer._moe_mlp``); a MoE layer's output depends on
+the whole call's rows, which share the experts' capacity: the bucket's
+padding at prefill, every slot of the batch at decode. LoRA,
+``verify_step`` and the slot-layout decode are not ported yet (ROADMAP.md
+Queue 1).
 
 Sampling takes an explicit ``torch.Generator`` on the logits' device where
 the JAX code takes a PRNG key; the two give different random streams, so
@@ -16,13 +21,16 @@ import torch
 
 from ray_tpu_torch import ops
 from ray_tpu_torch.models.transformer import (
-    TransformerConfig, _attn_out, _attn_qkv, _dense_mlp, _norm, layer,
-    lm_logits, rope_tables)
+    TransformerConfig, _attn_out, _attn_qkv, _dense_mlp, _moe_mlp, _norm,
+    lm_logits, rope_tables, unstack_layers)
 
 _NEG_INF = -1e30
 
 
 def _mlp_block(normed, layer_p, cfg):
+    if cfg.moe:
+        delta, _aux = _moe_mlp(normed, layer_p["mlp"], cfg)
+        return delta
     return _dense_mlp(normed, layer_p["mlp"], cfg)
 
 
@@ -44,8 +52,7 @@ def prefill(params, tokens, length: int, cfg: TransformerConfig, *,
     L, Hkv, Dh = cfg.n_layers, cfg.kv_heads, cfg.head_dim
     kv_k = torch.empty((L, T, Hkv, Dh), dtype=dt, device=x.device)
     kv_v = torch.empty_like(kv_k)
-    for i in range(L):
-        lp = layer(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         q, k, v = _attn_qkv(_norm(x, lp["norm1"], cfg), lp["attn"], cfg)
         if cfg.pos == "rope":
             q = ops.apply_rope(q, cos, sin)

@@ -24,8 +24,8 @@ from ray_tpu_torch import ops
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.decoding import _mlp_block
 from ray_tpu_torch.models.transformer import (
-    TransformerConfig, _attn_out, _attn_qkv, _norm, layer, lm_logits,
-    rope_tables)
+    TransformerConfig, _attn_out, _attn_qkv, _norm, lm_logits, rope_tables,
+    unstack_layers)
 
 
 def init_paged_state(cfg: TransformerConfig, max_slots: int, max_len: int,
@@ -118,8 +118,7 @@ def decode_step_paged_ragged(params, state, cfg: TransformerConfig,
     cos, sin = rope_tables(cfg, x.device)
     G = cfg.n_heads // cfg.kv_heads
     positions = pos.long()[:, None]
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         kp, vp = state["kp"][i], state["vp"][i]  # views into the pool
         q, k, v = _attn_qkv(_norm(x, lp["norm1"], cfg), lp["attn"], cfg)
         if cfg.pos == "rope":
@@ -152,8 +151,7 @@ def decode_step_paged(params, state, cfg: TransformerConfig):
     positions = pos.long()[:, None]
     block = state["block"].long()
     mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
-    for i in range(cfg.n_layers):
-        lp = layer(params, i)
+    for i, lp in enumerate(unstack_layers(params)):
         kp, vp = state["kp"][i], state["vp"][i]
         q, k, v = _attn_qkv(_norm(x, lp["norm1"], cfg), lp["attn"], cfg)
         if cfg.pos == "rope":

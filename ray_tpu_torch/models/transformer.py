@@ -1,16 +1,22 @@
-"""Decoder-only transformer core (dense stack), the twin of
-ray_tpu/models/transformer.py.
+"""Decoder-only transformer core shared by the GPT-2, Llama and Mixtral
+families, the twin of ray_tpu/models/transformer.py.
 
 Params are a dict tree with the JAX package's names and layouts, layers
 stacked on dim 0: ``wq [L,E,H,Dh]``, ``wk/wv [L,E,Hkv,Dh]``, ``wo [L,H,Dh,E]``,
 ``wi_gate/wi_up [L,E,F]``, mlp ``wo [L,F,E]``, norms ``{"w": [L,E]}``,
-``embed [V,E]``, ``lm_head [E,V]``. Compute runs in ``cfg.dtype`` with f32
-norms and softmax, casting weights at each use as the JAX code does (a no-op
-when they are already stored in ``cfg.dtype``).
+``embed [V,E]``, ``lm_head [E,V]``; with ``cfg.moe`` the mlp is a router
+``[L,E,X]`` and the experts' stacked ``gate/up [L,X,E,F]`` and
+``down [L,X,F,E]`` (ops/moe.py routes each token to its top-k experts).
+Compute runs in ``cfg.dtype`` with f32 norms, softmax and routing, casting
+weights at each use as the JAX code does (a no-op when they are already
+stored in ``cfg.dtype``).
 
-Training: ``loss_fn`` is the next-token loss; with ``cfg.remat`` the layers
-run under non-reentrant ``torch.utils.checkpoint`` as ``remat_policy``
-says, the counterpart of the JAX package's ``jax.checkpoint`` policies.
+``forward`` takes the stacked leaves apart once per call (``torch.unbind``,
+whose backward is one stack) and returns the logits and the layers' summed
+MoE aux loss. Training: ``loss_fn`` is the next-token loss plus
+``aux_coef * aux / n_layers`` for MoE; with ``cfg.remat`` the layers run
+under non-reentrant ``torch.utils.checkpoint`` as ``remat_policy`` says,
+the counterpart of the JAX package's ``jax.checkpoint`` policies.
 """
 
 from __future__ import annotations
@@ -18,7 +24,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Any
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
@@ -27,9 +32,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ray_tpu_torch import ops
 from ray_tpu_torch._device import resolve_device
 
-MOE_TODO = ("MoE is not ported yet: ROADMAP.md Queue 1, "
-            "'MoE and the other model families'")
 REMAT_POLICIES = ("nothing", "dots", "pairs")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    aux_coef: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +59,7 @@ class TransformerConfig:
     max_seq_len: int = 2048
     tie_embeddings: bool = False
     bias: bool = False                     # attn/mlp biases (GPT-2 style)
-    moe: Any = None
+    moe: MoEConfig | None = None
     remat: bool = True                     # checkpoint layers (memory for FLOPs)
     remat_policy: str = "nothing"          # "nothing" | "dots" (save matmul
                                            # outputs) | "pairs" (every other layer)
@@ -56,8 +67,6 @@ class TransformerConfig:
     param_dtype: torch.dtype = torch.float32
 
     def __post_init__(self):
-        if self.moe is not None:
-            raise NotImplementedError(MOE_TODO)
         if self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {self.remat_policy!r}")
@@ -89,7 +98,11 @@ def param_shapes(cfg: TransformerConfig) -> dict:
             "wo": (L, H, Dh, E)}
     if cfg.bias:
         attn.update(bq=(L, H, Dh), bk=(L, Hkv, Dh), bv=(L, Hkv, Dh), bo=(L, E))
-    if cfg.act == "swiglu":
+    if cfg.moe:
+        X = cfg.moe.num_experts
+        mlp = {"router": (L, E, X), "gate": (L, X, E, F), "up": (L, X, E, F),
+               "down": (L, X, F, E)}
+    elif cfg.act == "swiglu":
         mlp = {"wi_gate": (L, E, F), "wi_up": (L, E, F), "wo": (L, F, E)}
     else:
         mlp = {"wi": (L, E, F), "wo": (L, F, E)}
@@ -112,7 +125,7 @@ def _init_std(path: tuple, cfg: TransformerConfig) -> float | None:
     if any(k in ("norm1", "norm2", "final_norm") for k in path) \
             or path[-1] in ("bq", "bk", "bv", "bo", "bi"):
         return None
-    if path[-1] == "wo":
+    if path[-1] in ("wo", "down"):
         return 0.02 / math.sqrt(2 * cfg.n_layers)
     return 0.02
 
@@ -122,20 +135,26 @@ def init(generator: torch.Generator, cfg: TransformerConfig, device=None,
     """Random params drawn on `device` (no host round trip: an 8B model is
     drawn in seconds on the card). `dtype` defaults to cfg.param_dtype;
     serving passes cfg.dtype to store the weights once in the compute type."""
-    device = resolve_device(device)
-    dtype = dtype or cfg.param_dtype
+    return draw(generator, param_shapes(cfg), lambda path: _init_std(path, cfg),
+                resolve_device(device), dtype or cfg.param_dtype)
 
+
+def draw(generator: torch.Generator, shapes: dict, std_of, device,
+         dtype: torch.dtype) -> dict:
+    """A param tree of `shapes` drawn on `device`: normal with std
+    ``std_of(path)``, or ones for norm weights ("w") and zeros for the rest
+    where it is None."""
     def build(tree, path):
         if isinstance(tree, dict):
             return {k: build(v, path + (k,)) for k, v in tree.items()}
-        std = _init_std(path, cfg)
+        std = std_of(path)
         if std is None:
             fill = 1.0 if path[-1] == "w" else 0.0
             return torch.full(tree, fill, dtype=dtype, device=device)
         x = torch.randn(tree, generator=generator, dtype=dtype, device=device)
         return x.mul_(std)
 
-    return build(param_shapes(cfg), ())
+    return build(shapes, ())
 
 
 # ----------------------------------------------------------------- apply
@@ -202,13 +221,39 @@ def _dense_mlp(x, p, cfg):
     return out
 
 
-def layer(params: dict, i: int) -> dict:
-    """Layer i's slice of the stacked layer tree (views, no copies)."""
-    def take(tree):
+def _moe_mlp(x, p, cfg):
+    """The MoE mlp on [B, T, E] → (delta [B, T, E], aux loss f32 scalar).
+    Routing spans all B*T rows: they share the experts' capacity."""
+    dt = cfg.dtype
+    B, T, E = x.shape
+    xf = x.reshape(B * T, E)
+    router_logits = (xf @ p["router"].to(dt)).float()
+    routing = ops.topk_routing(router_logits, num_experts=cfg.moe.num_experts,
+                               k=cfg.moe.top_k,
+                               capacity_factor=cfg.moe.capacity_factor)
+
+    def expert_fn(pe, xe):  # every expert at once: [X, C, E] batched matmuls
+        h = ops.swiglu(torch.bmm(xe, pe["gate"].to(dt)),
+                       torch.bmm(xe, pe["up"].to(dt)))
+        return torch.bmm(h, pe["down"].to(dt))
+
+    expert_params = {"gate": p["gate"], "up": p["up"], "down": p["down"]}
+    y = ops.moe_apply(xf, routing, expert_fn, expert_params)
+    return y.reshape(B, T, E), routing.aux_loss
+
+
+def unstack_layers(params: dict) -> list[dict]:
+    """The per-layer trees of the stacked layer tree (views, no copies),
+    taken apart at once: one ``torch.unbind`` per stacked leaf. Its
+    backward is one stack of the L slice gradients, where L indexing views
+    would each add a full-size gradient into the leaf."""
+    def split(tree):
         if isinstance(tree, dict):
-            return {k: take(v) for k, v in tree.items()}
-        return tree[i]
-    return take(params["layers"])
+            parts = {k: split(v) for k, v in tree.items()}
+            n = len(next(iter(parts.values())))
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return tree.unbind(0)
+    return split(params["layers"])
 
 
 def rope_tables(cfg: TransformerConfig, device):
@@ -226,9 +271,14 @@ def lm_logits(x, params, cfg):
 
 
 def _block(x, lp, cfg, cos, sin, attn_impl):
+    """One layer: (x, its MoE aux loss, or None for a dense mlp)."""
     x = x + _attn_block(_norm(x, lp["norm1"], cfg), lp["attn"], cfg, cos, sin,
                         attn_impl)
-    return x + _dense_mlp(_norm(x, lp["norm2"], cfg), lp["mlp"], cfg)
+    normed = _norm(x, lp["norm2"], cfg)
+    if cfg.moe:
+        delta, aux = _moe_mlp(normed, lp["mlp"], cfg)
+        return x + delta, aux
+    return x + _dense_mlp(normed, lp["mlp"], cfg), None
 
 
 def _save_matmuls(ctx, op, *args, **kwargs):
@@ -258,26 +308,32 @@ def _layer_fn(cfg: TransformerConfig, i: int):
 def forward(params, tokens, cfg: TransformerConfig, *,
             attn_impl: str | None = None, return_hidden: bool = False):
     """tokens [B, T] int → (logits [B, T, V] in cfg.dtype, aux_loss); the
-    aux loss is 0 for the dense stack. With return_hidden=True, returns the
-    final-normed hidden states [B, T, E] instead of logits.
+    aux loss (f32) is the sum of the MoE layers' load-balancing losses, 0
+    for the dense stack. With return_hidden=True, returns the final-normed
+    hidden states [B, T, E] instead of logits.
 
     With ``cfg.remat`` (and grad enabled) each layer is checkpointed as
     ``cfg.remat_policy`` says: "nothing" recomputes every layer in
-    backward, "pairs" only the first layer of each pair, "dots" every layer
-    but its saved matmul outputs."""
-    if cfg.remat and cfg.remat_policy == "pairs" and cfg.n_layers % 2:
+    backward, "pairs" only the first layer of each pair (dense stacks
+    only, as in the JAX package), "dots" every layer but its saved matmul
+    outputs."""
+    if cfg.remat and cfg.remat_policy == "pairs" and (cfg.n_layers % 2
+                                                      or cfg.moe):
         raise ValueError(
-            "remat_policy='pairs' needs an even n_layers; falling back "
-            "silently would misattribute benchmark results to selective remat")
+            "remat_policy='pairs' needs an even n_layers and a dense (non-"
+            "MoE) stack; falling back silently would misattribute benchmark "
+            "results to selective remat")
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens]
     if cfg.pos == "learned":
         x = x + params["pos_embed"][:tokens.shape[1]].to(dt)
     cos, sin = rope_tables(cfg, x.device)
-    for i in range(cfg.n_layers):
-        x = _layer_fn(cfg, i)(x, layer(params, i), cfg, cos, sin, attn_impl)
-    x = _norm(x, params["final_norm"], cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, lp in enumerate(unstack_layers(params)):
+        x, layer_aux = _layer_fn(cfg, i)(x, lp, cfg, cos, sin, attn_impl)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    x = _norm(x, params["final_norm"], cfg)
     if return_hidden:
         return x, aux
     return lm_logits(x, params, cfg), aux
@@ -290,19 +346,23 @@ def loss_fn(params, tokens, cfg: TransformerConfig, *,
     -100 ignored), the JAX package's rules: fused_ce (default: on for
     vocab >= 8192, and off with tied embeddings, which have no lm_head)
     streams the head matmul into a chunked cross-entropy so the [B, T, V]
-    logits never exist at once."""
+    logits never exist at once. A MoE stack adds
+    ``cfg.moe.aux_coef * aux / cfg.n_layers``."""
     if fused_ce is None:
         fused_ce = cfg.vocab_size >= 8192
     fused_ce = fused_ce and not cfg.tie_embeddings
     labels = tokens[:, 1:]
     if fused_ce:
-        hidden, _ = forward(params, tokens[:, :-1], cfg, attn_impl=attn_impl,
-                            return_hidden=True)
+        hidden, aux = forward(params, tokens[:, :-1], cfg,
+                              attn_impl=attn_impl, return_hidden=True)
         B, T, E = hidden.shape
         loss, _ = ops.fused_head_cross_entropy(
             hidden.reshape(B * T, E), params["lm_head"],
             labels.reshape(B * T), chunk=ce_chunk or 2048)
     else:
-        logits, _ = forward(params, tokens[:, :-1], cfg, attn_impl=attn_impl)
+        logits, aux = forward(params, tokens[:, :-1], cfg,
+                              attn_impl=attn_impl)
         loss, _ = ops.softmax_cross_entropy(logits, labels)
+    if cfg.moe:
+        loss = loss + cfg.moe.aux_coef * aux / cfg.n_layers
     return loss

@@ -1,20 +1,24 @@
 """Attention dispatcher.
 
 Models call ``attention(q, k, v, ...)`` with [B, T, H, D] activations (GQA
-allowed: fewer KV heads). On CUDA tensors the port's flash kernels
-(ops/flash_attention.py) always run, through the ``FlashAttention``
-autograd function: the forward kernel, and the dK/dV and dQ kernels when a
-gradient flows back. Prompt buckets are powers of two >= 64 and training
-sequences multiples of 64, so the 64-row tiles divide every length, and the
-kernels read the kv heads in place (no repeat_kv copy). On CPU tensors the
-plain reference runs, the same math the JAX package's CPU path uses.
+allowed: fewer KV heads). The automatic choice (``impl=None``) takes the
+port's flash kernels (ops/flash_attention.py) where they fit, as
+``flash_attention.kernel_fits`` decides from device, dtype and shape alone:
+CUDA bf16 tensors with head_dim 64 or 128 and T a multiple of 64. They run
+through the ``FlashAttention`` autograd function: the forward kernel, and
+the dK/dV and dQ kernels when a gradient flows back, reading the kv heads
+in place (no repeat_kv copy). Every other call, CPU tensors included, takes
+the dense reference, as the JAX package's auto path takes its reference
+for shapes its kernel does not tile. The engine's prompt buckets and the
+training sequences are multiples of 64, so serving and training launch the
+kernels; ViT's T = 197 takes the reference.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ray_tpu_torch.ops.flash_attention import FlashAttention
+from ray_tpu_torch.ops.flash_attention import FlashAttention, kernel_fits
 
 _NEG_INF = -1e30
 
@@ -46,23 +50,23 @@ def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
               impl: str | None = None):
     """q: [B, T, H, D]; k, v: [B, T, Hkv, D]. Returns [B, T, H, D].
 
-    impl: None → the flash kernels for CUDA tensors, the reference for CPU
-    tensors; "flash" → the flash autograd function (its plain versions on
-    the CPU); "reference" → the dense reference on any device.
+    impl: None → the flash kernels where ``kernel_fits`` holds, else the
+    reference; "flash" → the flash autograd function (its plain versions on
+    the CPU; on CUDA it raises for inputs the kernels do not take);
+    "reference" → the dense reference on any device.
     """
     H, Hkv = q.shape[2], k.shape[2]
     if H % Hkv != 0:
         raise ValueError(f"q heads {H} not a multiple of kv heads {Hkv}")
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    # heads-major views, no copies: the kernels take any strides with a
+    # unit last dim, and o comes back dense in q's [B, T, H, D] layout
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if impl is None:
-        impl = "flash" if q.is_cuda else "reference"
+        impl = "flash" if kernel_fits(qh, kh, vh) else "reference"
     if impl == "flash":
-        # heads-major views, no copies: the kernels take any strides with a
-        # unit last dim, and o comes back dense in q's [B, T, H, D] layout
-        o = FlashAttention.apply(q.transpose(1, 2), k.transpose(1, 2),
-                                 v.transpose(1, 2), causal, scale)
-        return o.transpose(1, 2)
+        return FlashAttention.apply(qh, kh, vh, causal, scale).transpose(1, 2)
     if impl != "reference":
         raise ValueError(f"impl must be None, 'flash' or 'reference', "
                          f"got {impl!r}")

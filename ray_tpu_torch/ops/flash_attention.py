@@ -21,7 +21,9 @@ at the end is zero-filled by TMA and masked in the kernel.
 public form.
 
 On a CUDA tensor a wrapper launches its kernel or raises; only a CPU tensor
-takes the plain version. The kernels read kv head ``h // (H / Hkv)``
+takes the plain version. ``kernel_fits`` says, from device, dtype and shape
+alone, whether the kernels take a call: the attention dispatcher's
+automatic choice, by the same rule the wrappers' checks raise from. The kernels read kv head ``h // (H / Hkv)``
 themselves, so q may have more heads than k/v (GQA): no repeat_kv copy is
 made, and dK/dV come out per kv head, summed over the q heads of the group.
 """
@@ -36,6 +38,7 @@ from ray_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 TILE = 64  # q rows and keys per kernel tile; T must be a multiple
+HEAD_DIMS = (64, 128)  # the head dims the kernels are built for
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _TAIL = [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _P]
@@ -128,18 +131,46 @@ def _kernel_layout_ok(x) -> bool:
             and x.data_ptr() % 16 == 0)
 
 
+def _misfit(shape_q, dtypes: dict):
+    """Why the kernels cannot take a q of `shape_q` [B,H,T,D] with inputs
+    of `dtypes` (name → dtype): an (exception type, message) pair, or None
+    when they fit. The one rule behind both ``kernel_fits`` and the
+    wrappers' checks, so the dispatcher and the wrappers cannot disagree."""
+    T, D = shape_q[2], shape_q[3]
+    if D not in HEAD_DIMS:
+        return ValueError, f"flash kernel supports head_dim 64 or 128, got {D}"
+    if T % TILE:
+        return ValueError, f"T={T} must be a multiple of the kernel tile {TILE}"
+    for name, dt in dtypes.items():
+        if dt != torch.bfloat16:
+            return TypeError, f"flash kernel takes bf16, got {name} {dt}"
+    return None
+
+
+def _fits(shape_q, dtypes: dict, is_cuda: bool) -> bool:
+    """Device, dtype and shape only: layout and alignment are not part of
+    the choice (a bad stride on the kernel path stays an error)."""
+    return is_cuda and _misfit(shape_q, dtypes) is None
+
+
+def kernel_fits(q, k, v) -> bool:
+    """Whether the kernels take heads-major q [B,H,T,D] and k/v [B,Hkv,T,D]:
+    all three on CUDA and bf16, D in (64, 128) and T % TILE == 0. The
+    attention dispatcher's automatic choice; decided from the tensors'
+    metadata before any call."""
+    return _fits(q.shape, {"q": q.dtype, "k": k.dtype, "v": v.dtype},
+                 q.is_cuda and k.is_cuda and v.is_cuda)
+
+
 def _check_kernel_args(q, named):
     """Size, dtype, layout and device checks shared by the three kernels,
     all made before the C entry point is called."""
     _check_inputs(q, named["k"], named["v"])
-    B, H, T, D = q.shape
-    if D not in (64, 128):
-        raise ValueError(f"flash kernel supports head_dim 64 or 128, got {D}")
-    if T % TILE:
-        raise ValueError(f"T={T} must be a multiple of the kernel tile {TILE}")
+    bad = _misfit(q.shape, {name: x.dtype for name, x in named.items()})
+    if bad is not None:
+        exc, msg = bad
+        raise exc(msg)
     for name, x in named.items():
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bf16, got {name} {x.dtype}")
         if not _kernel_layout_ok(x):
             raise ValueError(f"{name} needs a unit last stride, other strides "
                              "positive multiples of 8 and 16-byte alignment")

@@ -231,6 +231,8 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.llm.checkpoint_io\n"
         "import ray_tpu_torch.train, ray_tpu_torch.benchmarks\n"
         "import ray_tpu_torch.benchmarks.train_step\n"
+        "import ray_tpu_torch.ops.moe, ray_tpu_torch.models.vit\n"
+        "import ray_tpu_torch.models.gpt2, ray_tpu_torch.models.mixtral\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -241,3 +243,65 @@ def test_package_imports_without_jax_or_ray_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+# ------------------------------------------------- the other model families
+
+MIXTRAL = dict(vocab_size=128, max_seq_len=128, d_model=64, n_layers=2,
+               n_heads=4, n_kv_heads=2, d_ff=96, num_experts=4, top_k=2)
+
+
+def test_mixtral_engine_greedy_token_exact_vs_tpu_engine():
+    """Mixtral (MoE in every layer) through both engines, requests submitted
+    one after the other: a MoE layer's output depends on every row of the
+    call (the slots share the experts' capacity), so both engines must
+    decode the same batch, which concurrent submission does not promise."""
+    from ray_tpu.models import mixtral_config as jmixtral
+    from ray_tpu_torch.models import mixtral_config as tmixtral
+
+    jcfg = jmixtral("tiny", **MIXTRAL, dtype=jnp.float32, remat=False)
+    tcfg = tmixtral("tiny", **MIXTRAL, dtype=torch.float32)
+    jparams = jtr.init(jax.random.PRNGKey(0), jcfg)
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                                      "cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, 127, size=n).tolist() for n in (3, 11, 19, 30)]
+    jeng = TPUEngine(jcfg, jparams, attn_impl="ragged", **ENGINE)
+    try:
+        want = [jeng.generate(p, JSamplingParams(max_tokens=10))
+                for p in prompts]
+    finally:
+        jeng.shutdown()
+    teng = LLMEngine(tcfg, tparams, device="cpu", **ENGINE)
+    try:
+        got = [teng.generate(p, SamplingParams(max_tokens=10))
+               for p in prompts]
+        st = teng.stats()
+    finally:
+        teng.shutdown()
+    assert got == want
+    assert st["prefills"] == 4 and st["free_pages"] == st["num_pages"] - 1
+
+
+@pytest.mark.parametrize("family,size,kwargs", [
+    ("gpt2", "124m", dict(vocab_size=128, max_seq_len=128, d_model=64,
+                          n_layers=2, n_heads=4, d_ff=128)),
+    ("mixtral", "tiny", MIXTRAL)])
+def test_from_config_builds_each_family_on_cpu(family, size, kwargs):
+    eng = LLMEngine.from_config(LLMConfig(
+        model_family=family, model_loading_config=ModelLoadingConfig(size),
+        model_kwargs={**kwargs, "dtype": torch.float32},
+        engine_kwargs={**ENGINE, "device": "cpu"}))
+    try:
+        out = eng.generate([1, 2, 3], SamplingParams(max_tokens=5))
+        assert len(out) == 5 and all(0 <= t < 128 for t in out)
+        assert (eng.cfg.moe is not None) is (family == "mixtral")
+        assert (eng.cfg.pos, eng.cfg.tie_embeddings) == (
+            ("learned", True) if family == "gpt2" else ("rope", False))
+    finally:
+        eng.shutdown()
+
+
+def test_build_model_refuses_an_unknown_family():
+    with pytest.raises(ValueError, match="'gpt2', 'llama' or 'mixtral'"):
+        LLMConfig(model_family="vit").build_model("cpu")

@@ -1,6 +1,8 @@
 """ray_tpu_torch.models against ray_tpu.models on the CPU, on TINY-style f32
 configs with the JAX package's own weights converted by params_from_jax."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -79,8 +81,14 @@ def test_init_shapes_match_jax_and_config_rules():
         assert tuple(t.shape) == tuple(j.shape), name
     assert torch.all(params["final_norm"]["w"] == 1)
     assert abs(params["embed"].std().item() - 0.02) < 2e-3
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.TransformerConfig(moe=object())
+    # a MoE config builds; remat_policy="pairs" with MoE raises, as the
+    # JAX package's forward does
+    moe = ttr.TransformerConfig(**TINY, moe=ttr.MoEConfig(num_experts=4),
+                                dtype=torch.float32, remat_policy="pairs")
+    moe_params = ttr.init(gen, moe, "cpu")
+    assert tuple(moe_params["layers"]["mlp"]["down"].shape) == (2, 4, 128, 64)
+    with pytest.raises(ValueError, match="non-MoE"):
+        ttr.forward(moe_params, torch.zeros((1, 8), dtype=torch.long), moe)
 
 
 def test_forward_matches_jax(tiny):
@@ -215,3 +223,146 @@ def test_sampling_greedy_and_top_k():
     assert set(draws[:, 0].tolist()) <= {1, 3}
     freq = (draws[:, 0] == 1).float().mean().item()  # p = e^3/(e^3+e^2.9)
     assert 0.4 < freq < 0.65
+
+
+# ------------------------------------------------- the three model families
+
+FAMILY_KW = dict(vocab_size=128, max_seq_len=64, d_model=64, n_layers=2,
+                 n_heads=4)
+
+
+def _family_configs(name):
+    """(jax cfg, port cfg): the tiny configs of tests/test_models.py:12-27
+    in f32, built by each package's own family factory."""
+    from ray_tpu.models import gpt2_config, llama_config, mixtral_config
+    from ray_tpu_torch import models as tmodels
+
+    kw = {"gpt2": dict(FAMILY_KW, d_ff=128),
+          "llama": dict(FAMILY_KW, n_kv_heads=2, d_ff=96),
+          "mixtral": dict(FAMILY_KW, n_kv_heads=2, d_ff=96, num_experts=4,
+                          top_k=2)}[name]
+    size = {"gpt2": "124m", "llama": "tiny", "mixtral": "tiny"}[name]
+    jf = {"gpt2": gpt2_config, "llama": llama_config,
+          "mixtral": mixtral_config}[name]
+    tf = getattr(tmodels, f"{name}_config")
+    return (jf(size, **kw, dtype=jnp.float32, remat=False),
+            tf(size, **kw, dtype=torch.float32))
+
+
+@pytest.fixture(scope="module", params=["gpt2", "llama", "mixtral"])
+def family(request):
+    jcfg, tcfg = _family_configs(request.param)
+    jparams = jtr.init(jax.random.PRNGKey(0), jcfg)
+    tparams = convert.params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
+                                      "cpu")
+    return request.param, jcfg, jparams, tcfg, tparams
+
+
+def test_family_forward_logits_and_aux_match_jax(family):
+    name, jcfg, jparams, tcfg, tparams = family
+    assert tcfg.num_params() == jcfg.num_params()
+    tokens = np.random.default_rng(1).integers(0, 128, size=(2, 16))
+    want, jaux = jtr.forward(jparams, jnp.asarray(tokens), jcfg)
+    got, aux = ttr.forward(tparams, torch.from_numpy(tokens), tcfg)
+    assert got.shape == (2, 16, 128) and aux.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(aux.item(), float(jaux), atol=TOL, rtol=TOL)
+    assert (aux.item() > 0) is (name == "mixtral")
+
+
+def _grad_leaves(tparams):
+    """A copy of the tree whose leaves require grad, and its leaf paths."""
+    paths = [tuple(p.split("/")) for p, _ in _leaves(tparams)]
+    params, leaves = {}, []
+    for path in paths:
+        node, src = params, tparams
+        for key in path[:-1]:
+            node, src = node.setdefault(key, {}), src[key]
+        node[path[-1]] = src[path[-1]].detach().clone().requires_grad_()
+        leaves.append(node[path[-1]])
+    return params, paths, leaves
+
+
+@pytest.mark.parametrize("fused_ce", [False, True])
+def test_family_loss_and_grads_match_jax(family, fused_ce):
+    """loss_fn (with the MoE aux term for mixtral) and every param's
+    gradient against jax.value_and_grad, under the port's default remat."""
+    name, jcfg, jparams, tcfg, tparams = family
+    tokens = np.random.default_rng(2).integers(0, 128, size=(2, 17))
+    want, jgrads = jax.value_and_grad(jtr.loss_fn)(
+        jparams, jnp.asarray(tokens), jcfg, fused_ce=fused_ce, ce_chunk=16)
+    params, paths, leaves = _grad_leaves(tparams)
+    assert tcfg.remat
+    loss = ttr.loss_fn(params, torch.from_numpy(tokens), tcfg,
+                       fused_ce=fused_ce, ce_chunk=16)
+    np.testing.assert_allclose(loss.item(), float(want), atol=TOL, rtol=TOL)
+    grads = torch.autograd.grad(loss, leaves)
+    jl = dict(_leaves(jax.tree.map(np.asarray, jgrads)))
+    assert set(jl) == {"/".join(p) for p in paths}
+    for path, g in zip(paths, grads):
+        np.testing.assert_allclose(g.numpy(), jl["/".join(path)], atol=TOL,
+                                   rtol=TOL, err_msg="/".join(path))
+    if name == "mixtral":  # the aux term is in the loss the gradients see
+        hidden_only = ttr.loss_fn(
+            tparams, torch.from_numpy(tokens),
+            dataclasses.replace(tcfg, moe=dataclasses.replace(
+                tcfg.moe, aux_coef=0.0)), fused_ce=fused_ce, ce_chunk=16)
+        assert loss.item() - hidden_only.item() > 1e-4
+
+
+@pytest.mark.parametrize("n", [5, 16, 29])
+def test_family_prefill_logits_and_kv_match_jax(family, n):
+    """prefill at a padded bucket: for mixtral the padding rows share the
+    experts' capacity with the prompt in both packages."""
+    name, jcfg, jparams, tcfg, tparams = family
+    bucket = 16 if n <= 16 else 32
+    padded = np.zeros((1, bucket), np.int32)
+    padded[0, :n] = np.random.default_rng(n).integers(1, 127, size=n)
+    jl, jkv = jdec.prefill(jparams, jnp.asarray(padded), jnp.int32(n), jcfg)
+    tl, tkv = tdec.prefill(tparams, torch.from_numpy(padded).long(), n, tcfg)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=TOL)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tkv[key].numpy(), np.asarray(jkv[key]),
+                                   atol=TOL, rtol=TOL)
+
+
+def test_family_decode_steps_match_jax(family):
+    """Three ragged decode steps of one constructed mixed-length batch in
+    both packages (the same rows, so a MoE layer routes the same batch),
+    and the gather step agreeing with the ragged one."""
+    name, jcfg, jparams, tcfg, tparams = family
+    jstate, tstate = _mixed_states(jcfg, jparams, tcfg, tparams,
+                                   [3, 17, 27, 9])
+    for _ in range(3):
+        jstate, jl = jdp.decode_step_paged_ragged(jparams, jstate, jcfg, 2)
+        gather = {k: v.clone() for k, v in tstate.items()}
+        tstate, tl = tdp.decode_step_paged_ragged(tparams, tstate, tcfg, 2)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL,
+                                   rtol=TOL)
+        _, gl = tdp.decode_step_paged(tparams, gather, tcfg)
+        np.testing.assert_allclose(gl.numpy(), tl.numpy(), atol=TOL,
+                                   rtol=TOL)
+        nxt = np.array(jnp.argmax(jl, axis=-1), np.int32)
+        jstate = jdec.commit_tokens(jstate, jnp.asarray(nxt))
+        tdec.commit_tokens(tstate, torch.from_numpy(nxt))
+    for key in ("kp", "vp"):
+        np.testing.assert_allclose(tstate[key].numpy(), np.asarray(jstate[key]),
+                                   atol=TOL, rtol=TOL)
+
+
+def test_moe_tree_round_trips_through_params_from_jax(family):
+    name, jcfg, jparams, tcfg, tparams = family
+    jl = dict(_leaves(jax.tree.map(np.asarray, jparams)))
+    assert {k for k in jl if k.startswith("layers/mlp/")} == (
+        {"layers/mlp/router", "layers/mlp/gate", "layers/mlp/up",
+         "layers/mlp/down"} if name == "mixtral" else
+        {f"layers/mlp/{k}" for k in ttr.param_shapes(tcfg)["layers"]["mlp"]})
+    tl = dict(_leaves(tparams))
+    assert set(tl) == set(jl)
+    for key, arr in jl.items():
+        assert np.array_equal(tl[key].numpy(), arr), key
+    bad = jax.tree.map(np.asarray, jparams)
+    bad["layers"]["mlp"].pop(next(iter(bad["layers"]["mlp"])))
+    with pytest.raises(ValueError, match="layers/mlp"):
+        convert.params_from_jax(bad, tcfg, "cpu")

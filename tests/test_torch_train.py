@@ -270,3 +270,53 @@ def test_profile_kinds_name_the_kernels_of_a_step():
     }
     for name, kind in kinds.items():
         assert device_profile.kind_of(name) == kind, name
+
+
+def _edges_into(loss, leaf) -> int:
+    """How many autograd nodes feed a gradient into `leaf`."""
+    seen, stack, n = set(), [loss.grad_fn], 0
+    while stack:
+        fn = stack.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        for nxt, _ in fn.next_functions:
+            if nxt is not None:
+                n += getattr(nxt, "variable", None) is leaf
+                stack.append(nxt)
+    return n
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_each_stacked_leaf_takes_one_gradient_per_backward(remat):
+    """forward takes the stacked [L, ...] leaves apart once (torch.unbind):
+    each stacked leaf gets one gradient, one stack of its L slices, and one
+    accumulation per backward; L indexing views would feed it L full-size
+    gradients to add. Loss and gradients stay those of the JAX package."""
+    jcfg, jparams, tcfg, tparams = _pair(n_layers=4)
+    tcfg = dataclasses.replace(tcfg, remat=remat)
+    tokens = _tokens(4)
+    paths = list(_paths(tparams))
+    leaves = [_get(tparams, p).detach().requires_grad_() for p in paths]
+    params = {}
+    for p, leaf in zip(paths, leaves):
+        node = params
+        for k in p[:-1]:
+            node = node.setdefault(k, {})
+        node[p[-1]] = leaf
+    counts = [0] * len(leaves)
+    for i, leaf in enumerate(leaves):
+        leaf.register_post_accumulate_grad_hook(
+            lambda _, i=i: counts.__setitem__(i, counts[i] + 1))
+    loss = ttr.loss_fn(params, torch.from_numpy(tokens), tcfg)
+    stacked = [i for i, p in enumerate(paths) if p[0] == "layers"]
+    assert stacked and all(_edges_into(loss, leaves[i]) == 1 for i in stacked)
+    loss.backward()
+    assert counts == [1] * len(leaves)
+    want, jgrads = jax.value_and_grad(jtr.loss_fn)(
+        jparams, jnp.asarray(tokens), jcfg)
+    np.testing.assert_allclose(loss.item(), float(want), atol=TOL, rtol=TOL)
+    for path, leaf in zip(paths, leaves):
+        np.testing.assert_allclose(leaf.grad.numpy(),
+                                   np.asarray(_get(jgrads, path)), atol=TOL,
+                                   rtol=TOL, err_msg=str(path))
