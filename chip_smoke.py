@@ -81,6 +81,30 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    T = 100 bf16 and T = 128 f32 (the dense path, no launch) and T = 128
    bf16 (the forward kernel, one launch a layer), each against the plain
    path within phase 3's bounds.
+10. The engine's options, Llama-3-8B at full width and depth (bf16, random
+   weights from a seed, built once). First the model functions under
+   phase 3's bounds, each against the path it is held to and an f32 run:
+   chunked prefill (write_kv_pages, gather_prefix_pages,
+   prefill_with_prefix, activate_slot, then 2 ragged decode steps) against
+   whole-prompt prefill, the slot decode_step against the ragged paged step,
+   verify_step's K = 5 logits and written KV against 5 slot decode steps,
+   and LoRA prefill and decode with a random adapter against the adapter
+   merged into wq and wv. Then one LLMEngine a run (8 slots, max_len
+   2048, page 64), launch counts zeroed just before its traffic and read
+   just after:
+   paged (phase 4's 8 prompts), slot and paged ``attn_impl="gather"`` (the
+   same prompts; first tokens equal the paged run's), prefix cache +
+   ``prefill_chunk=512`` (a 1024-token shared prefix with 4 suffixes, the
+   first served to its first token before the rest, and a 1500-token
+   prompt; hits, misses, tokens reused, chunks, continuation prefills and
+   returned pages asserted exactly), ``speculative_k=4`` on the slot layout
+   (one token repeated to 1000, whose drafts must be accepted, and 3
+   random prompts), LoRA (no adapter, a zero adapter token-exact to it, a
+   random one; unload refused while live) and guided decoding (a choice
+   FSM and a regex FSM, greedy and at temperature 1, outputs allowed and
+   ended by EOS). Flash forward = layers x prefill calls, ragged = layers x
+   decode steps on the paged ragged runs and 0 elsewhere, no backward
+   kernel.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -423,6 +447,31 @@ def check_ragged(torch, inputs, nb: int, timed: bool, pos=None,
 
 # ------------------------------------------------------------------ phase 3
 
+def logit_row(torch, what: str, k, p, t) -> dict:
+    """Logits `k` (the path under test, bf16) against `p` (the path it is
+    held to, bf16), each against `t` (f32 compute): cosine, max abs
+    difference and relative distances to f32. Fails on a non-finite
+    value."""
+    k, p, t = k.float(), p.float(), t.float()
+    if not all(torch.isfinite(x).all() for x in (k, p, t)):
+        fail(f"{what}: non-finite logits")
+    return {"cosine": torch.nn.functional.cosine_similarity(
+                k.flatten(), p.flatten(), dim=0).item(),
+            "max_abs_diff": (k - p).abs().max().item(),
+            "kernel_rel_err_vs_f32": ((k - t).norm() / t.norm()).item(),
+            "plain_rel_err_vs_f32": ((p - t).norm() / t.norm()).item()}
+
+
+def hold(what: str, row: dict) -> None:
+    """Phase 3's bounds: cosine >= LOGIT_COS_MIN, max abs difference <=
+    LOGIT_MAX_ABS, and the tested path no farther from f32 than
+    F32_ERR_RATIO x the other path (+ 1e-3)."""
+    if row["cosine"] < LOGIT_COS_MIN or row["max_abs_diff"] > LOGIT_MAX_ABS \
+            or row["kernel_rel_err_vs_f32"] > \
+            F32_ERR_RATIO * row["plain_rel_err_vs_f32"] + 1e-3:
+        fail(f"{what}: {row}")
+
+
 class RoutingReplay:
     """Record and replay of ``ops.topk_routing`` (the models call it
     through the ops package). While active, the run named ``run`` gets, call
@@ -510,15 +559,9 @@ def check_model(torch, cfg, label: str) -> dict:
     logits, kvs, states, rows = {}, {}, {}, []
 
     def compare(what, real_rows):
-        k, p, t = (logits[x].float() for x in ("kernel", "plain", "f32"))
-        if not all(torch.isfinite(x).all() for x in (k, p, t)):
-            fail(f"model {what}: non-finite logits")
-        row = {"step": what,
-               "cosine": torch.nn.functional.cosine_similarity(
-                   k, p, dim=-1).item(),
-               "max_abs_diff": (k - p).abs().max().item(),
-               "kernel_rel_err_vs_f32": ((k - t).norm() / t.norm()).item(),
-               "plain_rel_err_vs_f32": ((p - t).norm() / t.norm()).item()}
+        row = {"step": what, **logit_row(
+            torch, f"model {what}",
+            *(logits[x] for x in ("kernel", "plain", "f32")))}
         if routing is not None:  # this step's calls, one a layer
             calls = slice(len(rows) * cfg.n_layers,
                           (len(rows) + 1) * cfg.n_layers)
@@ -531,11 +574,7 @@ def check_model(torch, cfg, label: str) -> dict:
                     routing.agreement("kernel", "plain", slice(i, i + 1),
                                       real_rows)
                     for i in range(cfg.n_layers)]
-        if row["cosine"] < LOGIT_COS_MIN \
-                or row["max_abs_diff"] > LOGIT_MAX_ABS \
-                or row["kernel_rel_err_vs_f32"] > \
-                F32_ERR_RATIO * row["plain_rel_err_vs_f32"] + 1e-3:
-            fail(f"model {what}: {row}")
+        hold(f"model {what}", row)
         return row
 
     with routing if routing is not None else contextlib.nullcontext():
@@ -892,6 +931,420 @@ def check_dispatch(torch, kernels) -> dict:
             "cases": rows}
 
 
+# ----------------------------------------------------------------- phase 10
+
+ENGINE_RUNS = ("paged", "slot", "gather", "prefix_chunk", "speculative",
+               "lora", "guided")
+ENGINE_MAX_TOKENS = 32
+SHARED_PREFIX = 1024           # 16 full pages of 64
+SUFFIXES = [60, 150, 280, 400]
+LONG_PROMPT = 1500
+PREFILL_CHUNK = 512
+SPEC_K = 4
+LORA_RANK = 8
+EOS_ID = 128001                # the guided runs' stop token
+CHOICES = [[9906, 1917], [9642, 11, 1314], [2822, 13, 21, 8]]
+REGEX = "(ok|no)[0-9]+"        # over single-byte token ids
+
+
+def engine_model_checks(torch, cfg, params) -> list[dict]:
+    """The model functions of the engine's options at Llama-3-8B's width
+    and depth, each path under test against the path it is held to (both
+    bf16) and against an f32 run, under phase 3's bounds (``hold``); decode
+    steps are teacher-forced from the f32 run:
+
+    - chunked prefill: a 384-token first chunk (the flash kernel, bucket
+      512) written with write_kv_pages, its 6 pages back through
+      gather_prefix_pages padded to 8 with scratch page 0 (filled with
+      noise, as inactive rows leave it; prefix_len masks it), the 616-token
+      rest by prefill_with_prefix (last logits), activate_slot and 2 ragged
+      decode steps, against whole-prompt prefill + insert_sequence_paged
+      and the same steps;
+    - the slot decode_step against decode_step_paged_ragged on the same
+      prompt (2 steps);
+    - verify_step's K = 5 logits, and the K rows of K and V it writes,
+      against 5 successive slot decode_steps on the same tokens;
+    - LoRA prefill and 2 decode_steps with a random rank-8 adapter against
+      the adapter merged densely into wq and wv (the f32 run: merged in
+      f32)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.models import decoding as dec
+    from ray_tpu_torch.models import decoding_paged as dp
+
+    dev = torch.device("cuda")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    P, S, n, head, K = 64, 2048, 1000, 384, SPEC_K + 1
+    rng = np.random.default_rng(SEED + 10)
+    toks = rng.integers(0, cfg.vocab_size, size=n).tolist()
+    pages = np.arange(1, S // P + 1, dtype=np.int32)
+    rows = []
+
+    def tokens(t, bucket):
+        x = np.zeros((1, bucket), np.int64)
+        x[0, :len(t)] = t
+        return torch.as_tensor(x, device=dev)
+
+    def check(what, k, p, t):
+        row = {"check": what, **logit_row(torch, what, k, p, t)}
+        rows.append(row)
+        hold(what, row)
+
+    def paged(c):
+        return dp.init_paged_state(c, 8, S, S // P + 1, P, dev)
+
+    def slot(c):
+        return dec.init_decode_state(c, 8, S, dev)
+
+    def forced(states, logits32):
+        nxt = torch.argmax(logits32).int().reshape(1).expand(8)
+        for st in states:
+            dec.commit_tokens(st, nxt)
+
+    lg32, kv32 = dec.prefill(params, tokens(toks, 1024), n, cfg32,
+                             attn_impl="reference")
+    first = int(torch.argmax(lg32))
+    lgw, kvw = dec.prefill(params, tokens(toks, 1024), n, cfg)
+    st_c = paged(cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    for pool in (st_c["kp"], st_c["vp"]):
+        pool[:, 0] = torch.randn(pool[:, 0].shape, generator=gen, device=dev,
+                                 dtype=pool.dtype)
+    _, kv1 = dec.prefill(params, tokens(toks[:head], 512), head, cfg)
+    dp.write_kv_pages(st_c, kv1, pages[:512 // P])
+    ids = np.zeros((8,), np.int32)
+    ids[:head // P] = pages[:head // P]
+    k_pre, v_pre = dp.gather_prefix_pages(st_c["kp"], st_c["vp"], ids)
+    lgc, kv2 = dp.prefill_with_prefix(params, tokens(toks[head:], 1024),
+                                      k_pre, v_pre, head, n - head, cfg)
+    dp.write_kv_pages(st_c, kv2, pages[head // P:])
+    dp.activate_slot(st_c, 0, pages, n, first)
+    del kv1, kv2, k_pre, v_pre
+    check("prefill_with_prefix over gathered pages vs whole prefill", lgc,
+          lgw, lg32)
+    st32, st_w, st_s = paged(cfg32), paged(cfg), slot(cfg)
+    dp.insert_sequence_paged(st32, 0, kv32, n, first, pages, cfg32)
+    dp.insert_sequence_paged(st_w, 0, kvw, n, first, pages, cfg)
+    dec.insert_sequence(st_s, 0, kvw, n, first, cfg)
+    for step in range(2):
+        bound = 1 << ((n + step) // P).bit_length()
+        st32, l32 = dp.decode_step_paged_ragged(params, st32, cfg32, bound,
+                                                impl="reference")
+        st_w, lw = dp.decode_step_paged_ragged(params, st_w, cfg, bound)
+        st_c, lc = dp.decode_step_paged_ragged(params, st_c, cfg, bound)
+        st_s, ls = dec.decode_step(params, st_s, cfg)
+        check(f"decode {step} after chunked prefill vs after whole prefill",
+              lc[0], lw[0], l32[0])
+        check(f"slot decode_step {step} vs decode_step_paged_ragged", ls[0],
+              lw[0], l32[0])
+        forced((st32, st_w, st_c, st_s), l32[0])
+    del st32, st_w, st_c, st_s
+    # verify_step: K inputs at once against K decode steps on the same tokens
+    draft = np.zeros((8, K - 1), np.int32)
+    draft[0] = rng.integers(0, cfg.vocab_size, size=K - 1)
+    st_v, st_d, st_f = slot(cfg), slot(cfg), slot(cfg32)
+    for st, kv, c in ((st_v, kvw, cfg), (st_d, kvw, cfg), (st_f, kv32, cfg32)):
+        dec.insert_sequence(st, 0, kv, n, first, c)
+    del kv32, kvw
+    st_v, lv = dec.verify_step(params, st_v, draft, cfg, K)
+    for j in range(K):
+        st_d, ld = dec.decode_step(params, st_d, cfg)
+        st_f, lf = dec.decode_step(params, st_f, cfg32)
+        check(f"verify_step logits {j} vs slot decode_step {j}", lv[0, j],
+              ld[0], lf[0])
+        if j < K - 1:
+            nxt = torch.full((8,), int(draft[0, j]), dtype=torch.int32,
+                             device=dev)
+            dec.commit_tokens(st_d, nxt)
+            dec.commit_tokens(st_f, nxt)
+    for name in ("k", "v"):  # the K rows each path wrote
+        check(f"verify_step's written {name} rows vs the decode steps'",
+              *(st[name][:, 0, n:n + K] for st in (st_v, st_d, st_f)))
+    del st_v, st_d, st_f, lv
+    # LoRA: a random adapter in the bank against it merged into wq and wv
+    bank = dec.init_lora_bank(cfg, 1, LORA_RANK, dev)
+    w = lora_adapter(torch, cfg, dev)
+    for key, x in w.items():
+        bank[key][:, 1] = x
+    bank["scale"][1] = 1.0
+    attn32, attn = {}, {}
+    for key, a, b in (("wq", "A_q", "B_q"), ("wv", "A_v", "B_v")):
+        base = params["layers"]["attn"][key]
+        attn32[key] = base.float() + torch.einsum(
+            "ler,lrhd->lehd", w[a].float(), w[b].float())
+        attn[key] = attn32[key].to(base.dtype)
+
+    def merged(new):
+        layers = params["layers"]
+        return {**params, "layers": {**layers,
+                                     "attn": {**layers["attn"], **new}}}
+
+    m_bf16, m_f32 = merged(attn), merged(attn32)
+    lgl, kvl = dec.prefill(params, tokens(toks, 1024), n, cfg,
+                           lora_bank=bank, lora_idx=1)
+    lgm, kvm = dec.prefill(m_bf16, tokens(toks, 1024), n, cfg)
+    lgf, kvf = dec.prefill(m_f32, tokens(toks, 1024), n, cfg32,
+                           attn_impl="reference")
+    check("LoRA prefill vs the adapter merged into wq, wv", lgl, lgm, lgf)
+    first = int(torch.argmax(lgf))
+    st_l, st_m, st_f = slot(cfg), slot(cfg), slot(cfg32)
+    for st, kv, c in ((st_l, kvl, cfg), (st_m, kvm, cfg), (st_f, kvf, cfg32)):
+        dec.insert_sequence(st, 0, kv, n, first, c)
+    del kvl, kvm, kvf
+    slot_lora = torch.zeros((8,), dtype=torch.int64, device=dev)
+    slot_lora[0] = 1
+    for step in range(2):
+        st_l, ll = dec.decode_step(params, st_l, cfg, bank, slot_lora)
+        st_m, lm = dec.decode_step(m_bf16, st_m, cfg)
+        st_f, lf = dec.decode_step(m_f32, st_f, cfg32)
+        check(f"LoRA decode_step {step} vs the merged adapter", ll[0], lm[0],
+              lf[0])
+        forced((st_l, st_m, st_f), lf[0])
+    return rows
+
+
+def lora_adapter(torch, cfg, device) -> dict:
+    """A rank-8 adapter of normal(0, 0.02) factors from a seed, layer-
+    stacked as load_lora takes it, in cfg.dtype on `device`."""
+    L, E, H, Hkv, Dh = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.kv_heads,
+                        cfg.head_dim)
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    shapes = {"A_q": (L, E, LORA_RANK), "B_q": (L, LORA_RANK, H, Dh),
+              "A_v": (L, E, LORA_RANK), "B_v": (L, LORA_RANK, Hkv, Dh)}
+    return {k: (torch.randn(s, generator=g) * 0.02).to(device, cfg.dtype)
+            for k, s in shapes.items()}
+
+
+def engine_run(torch, kernels, cfg, params, name: str, options: dict, drive,
+               prepare=None) -> dict:
+    """One LLMEngine (8 slots, max_len 2048, page 64) on the shared params:
+    `prepare(eng)` first, then the launch counts are zeroed, `drive(eng)`
+    serves the run's traffic and returns (outputs, extra), and the counts
+    are read. Every output must be a non-empty list of valid ids."""
+    from ray_tpu_torch.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params, max_slots=8, max_len=2048, page_size=64,
+                    seed=SEED, **options)
+    try:
+        if prepare is not None:
+            prepare(eng)
+        torch.cuda.synchronize()
+        zero(kernels)  # this run's path starts here
+        t0 = time.perf_counter()
+        outs, extra = drive(eng)
+        wall = time.perf_counter() - t0
+        launches = counts(kernels)
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    for i, out in enumerate(outs):
+        if not out or not all(0 <= t < cfg.vocab_size for t in out):
+            fail(f"engine {name}: request {i} gave {out[:8]}")
+    spec = st.get("speculative", {})
+    steps = st["decode_steps"] + spec.get("steps", 0)
+    prefills = st["prefills"] + st["prefix_prefills"]
+    tokens = sum(len(o) for o in outs)
+    return {"run": name, "options": options, "requests": len(outs),
+            "tokens_out": tokens, "wall_s": wall,
+            "prefill_ms_mean": 1e3 * st["prefill_seconds"] / prefills,
+            "step": "verify" if spec else "decode",
+            "step_ms_mean": 1e3 * st["decode_seconds"] / steps,
+            "tokens_per_s": tokens / wall, "launches": launches,
+            "stats": st, "extra": extra, "outs": outs}
+
+
+def serve_options(torch, kernels, card: str) -> dict:
+    """Phase 10: Llama-3-8B at full width and depth (bf16, random weights
+    from a seed, built once), the model checks of ``engine_model_checks``,
+    then one LLMEngine a run on those params (ENGINE_RUNS), each shut down
+    before the next. Per run, the launch counts are zeroed just before its
+    traffic and read just after, and must be exactly: flash forward =
+    layers x decode.prefill calls (whole prompts and first chunks; the
+    count of those calls is itself asserted), ragged = layers x decode
+    steps on the paged ragged runs and 0 elsewhere, no backward kernel."""
+    import re
+
+    import numpy as np
+
+    from ray_tpu_torch.llm import GuidedFSM, SamplingParams
+    from ray_tpu_torch.models import llama, transformer
+
+    dev = torch.device("cuda")
+    cfg = llama.llama_config("8b")
+    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
+                              cfg, dev, dtype=cfg.dtype)
+    checks = engine_model_checks(torch, cfg, params)
+    torch.cuda.empty_cache()
+    print(json.dumps({"card": card, "engine_model_checks": checks}),
+          flush=True)
+    V, L = cfg.vocab_size, cfg.n_layers
+    greedy = SamplingParams(max_tokens=ENGINE_MAX_TOKENS)
+    runs = {}
+
+    def prompts(lengths, seed):
+        rng = np.random.default_rng(seed)
+        return [rng.integers(0, V, size=n).tolist() for n in lengths]
+
+    def serve_all(ps, sp=greedy):
+        def drive(eng):
+            reqs = [eng.submit(p, sp) for p in ps]
+            return [list(r) for r in reqs], {}
+        return drive
+
+    def run(name, options, drive, prepare=None, *, prefills, ragged,
+            full=True):
+        row = engine_run(torch, kernels, cfg, params, name, options, drive,
+                         prepare)
+        shown = row["outs"] if name == "guided" else [o[:8]
+                                                      for o in row["outs"]]
+        print(json.dumps({"card": card, "engine_run": {**row, "outs": shown}}),
+              flush=True)
+        st = row["stats"]
+        want = {k.symbol: 0 for k in kernels}
+        want["flash_attention_fwd_bf16"] = L * st["prefills"]
+        want["ragged_paged_attention_bf16"] = \
+            L * st["decode_steps"] if ragged else 0
+        if row["launches"] != want or st["ragged_kernel"] != ragged:
+            fail(f"engine {name}: launches {row['launches']}, expected "
+                 f"{want} (ragged kernel {st['ragged_kernel']})")
+        if st["prefills"] != prefills:
+            fail(f"engine {name}: {st['prefills']} prefill calls, expected "
+                 f"{prefills}")
+        if full and any(len(o) != ENGINE_MAX_TOKENS for o in row["outs"]):
+            fail(f"engine {name}: output lengths "
+                 f"{[len(o) for o in row['outs']]}")
+        runs[name] = row
+        print(f"engine {name} on {card}: prefill {row['prefill_ms_mean']:.3f}"
+              f" ms mean, {row['step']} step {row['step_ms_mean']:.3f} ms "
+              f"mean, {row['tokens_per_s']:.1f} tokens/s", flush=True)
+        return row
+
+    lengths = prompts(SERVE_LENGTHS, SEED + 1)
+    first = [o[0] for o in run("paged", {"kv_layout": "paged"},
+                               serve_all(lengths), prefills=8,
+                               ragged=True)["outs"]]
+    for name, options in (("slot", {"kv_layout": "slot"}),
+                          ("gather", {"kv_layout": "paged",
+                                      "attn_impl": "gather"})):
+        got = [o[0] for o in run(name, options, serve_all(lengths),
+                                 prefills=8, ragged=False)["outs"]]
+        if got != first:
+            fail(f"engine {name}: first tokens {got} != the paged run's "
+                 f"{first}")
+
+    # prefix cache + chunked prefill
+    rng = np.random.default_rng(SEED + 2)
+    shared = rng.integers(0, V, size=SHARED_PREFIX).tolist()
+    pc = [shared + rng.integers(0, V, size=n).tolist() for n in SUFFIXES]
+    pc.append(rng.integers(0, V, size=LONG_PROMPT).tolist())
+
+    def drive_prefix(eng):
+        it = iter(eng.submit(pc[0], greedy))
+        head = [next(it)]  # its chunks registered the shared blocks
+        reqs = [eng.submit(p, greedy) for p in pc[1:]]
+        return [head + list(it)] + [list(r) for r in reqs], {}
+
+    staged = [-(-len(p) // PREFILL_CHUNK) for p in (pc[0], pc[-1])]
+    row = run("prefix_chunk", {"kv_layout": "paged",
+                               "enable_prefix_cache": True,
+                               "prefill_chunk": PREFILL_CHUNK},
+              drive_prefix, prefills=2, ragged=True)
+    st, cache = row["stats"], row["stats"]["prefix_cache"]
+    got = {"hits": cache["hits"], "misses": cache["misses"],
+           "tokens_reused": cache["tokens_reused"],
+           "prefill_chunks_run": st["prefill_chunks_run"],
+           "prefix_prefills": st["prefix_prefills"],
+           "pages_back": st["free_pages"] + cache["reclaimable_pages"]}
+    want = {"hits": 3, "misses": 2, "tokens_reused": 3 * SHARED_PREFIX,
+            "prefill_chunks_run": sum(staged),
+            "prefix_prefills": 3 + sum(staged) - 2,
+            "pages_back": st["num_pages"] - 1}
+    if got != want:
+        fail(f"engine prefix_chunk: {got}, expected {want}")
+
+    # speculative decoding on the slot layout. The repetitive prompt is one
+    # token repeated: random weights continue neither a repeated 64-token
+    # pattern nor their own greedy text, but after a constant context
+    # their greedy output falls into a short cycle the drafts then predict
+    sp_prompts = [[int(rng.integers(0, V))] * 1000] + prompts(
+        [300, 700, 1300], SEED + 3)
+
+    def drive_spec(eng):
+        reqs = [eng.submit(p, greedy) for p in sp_prompts]
+        outs = [list(r) for r in reqs]
+        return outs, {"accepted_by_request": [r.accepted for r in reqs]}
+
+    row = run("speculative", {"kv_layout": "slot", "speculative_k": SPEC_K},
+              drive_spec, prefills=4, ragged=False)
+    if row["extra"]["accepted_by_request"][0] <= 0:
+        fail(f"engine speculative: no draft accepted on the repetitive row "
+             f"({row['extra']}, {row['stats']['speculative']})")
+
+    # LoRA: no adapter, a zero adapter and a random one in one batch
+    rand = {k: v.float().cpu().numpy()
+            for k, v in lora_adapter(torch, cfg, "cpu").items()}
+    zeros = {k: np.zeros_like(v) for k, v in rand.items()}
+
+    def prepare_lora(eng):
+        eng.load_lora("zero", zeros)
+        eng.load_lora("rand", rand)
+
+    def drive_lora(eng):
+        loaded = eng.list_loras()
+        reqs = [eng.submit(lengths[3], greedy, lora=x)
+                for x in (None, "zero", "rand")]
+        try:
+            eng.unload_lora("rand")
+        except RuntimeError:
+            refused = True
+        else:
+            refused = False
+        outs = [list(r) for r in reqs]
+        eng.unload_lora("rand")
+        eng.unload_lora("zero")
+        return outs, {"loaded": loaded, "unload_refused_while_live": refused,
+                      "after_unload": eng.list_loras()}
+
+    row = run("lora", {"kv_layout": "slot", "max_loras": 2,
+                       "lora_rank": LORA_RANK}, drive_lora, prepare_lora,
+              prefills=3, ragged=False)
+    outs, extra = row["outs"], row["extra"]
+    if outs[1] != outs[0] or extra != {
+            "loaded": ["rand", "zero"], "unload_refused_while_live": True,
+            "after_unload": []}:
+        fail(f"engine lora: zero adapter {outs[1][:8]} vs none "
+             f"{outs[0][:8]}; {extra}")
+
+    # guided decoding on the paged layout, greedy and at temperature 1
+    choice = GuidedFSM.from_choices(CHOICES, V, EOS_ID)
+    regex = GuidedFSM.from_regex(REGEX, V, EOS_ID)
+    g_prompts = prompts([40, 90, 200, 500], SEED + 5)
+    kinds = ["choice", "regex", "free", "free"] * 2
+
+    def drive_guided(eng):
+        reqs = []
+        for temp in (0.0, 1.0):
+            for fsm, p in zip((choice, regex, None, None), g_prompts):
+                reqs.append(eng.submit(p, SamplingParams(
+                    max_tokens=ENGINE_MAX_TOKENS, temperature=temp,
+                    stop_token_ids=(EOS_ID,) if fsm else (), guided=fsm)))
+        return [list(r) for r in reqs], {"kinds": kinds}
+
+    row = run("guided", {"kv_layout": "paged"}, drive_guided, prefills=8,
+              ragged=True, full=False)
+    for kind, out in zip(kinds, row["outs"]):
+        ended = len(out) < ENGINE_MAX_TOKENS  # stopped on EOS
+        ok = {"choice": ended and out in CHOICES,
+              "regex": ended and re.fullmatch(
+                  REGEX, "".join(chr(t) for t in out)) is not None,
+              "free": len(out) == ENGINE_MAX_TOKENS}[kind]
+        if not ok:
+            fail(f"engine guided: a {kind} row gave {out}")
+    return {name: row["launches"] for name, row in runs.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
@@ -978,7 +1431,8 @@ def main() -> int:
     # every path zeroes and reads all four counts
     all_kernels = flash_kernels + [ra.KERNEL]
     launches = {"serve": {}, "train": {}, "serve_mixtral": {},
-                "serve_gpt2": {}, "vit": {}}
+                "serve_gpt2": {}, "vit": {},
+                **{f"engine_{r}": {} for r in ENGINE_RUNS}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral
 
@@ -1041,6 +1495,10 @@ def main() -> int:
               f"{gpt2_serving['prefill_ms_mean']:.3f} ms mean, decode step "
               f"{gpt2_serving['decode_step_ms_mean']:.3f} ms mean, "
               f"{gpt2_serving['tokens_per_s']:.1f} tokens/s", flush=True)
+        # phase 10: the engine's options on Llama-3-8B
+        for name, n in serve_options(torch, all_kernels, card).items():
+            launches[f"engine_{name}"] = n
+        torch.cuda.empty_cache()
 
     def case(name):
         return next(c for c in checks if c["case"] == name)

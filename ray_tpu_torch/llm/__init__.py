@@ -1,14 +1,17 @@
 """ray_tpu_torch.llm — the LLM engine on one GPU (PyTorch/CUDA port of
 ray_tpu.llm's engine; the serve layer above it is not ported yet)."""
 
-from ray_tpu_torch.llm.config import LLMConfig, ModelLoadingConfig
+from ray_tpu_torch.llm.config import LLMConfig, LoraConfig, ModelLoadingConfig
 from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
+from ray_tpu_torch.llm.guided import GuidedFSM
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer
 
 __all__ = [
     "ByteTokenizer",
+    "GuidedFSM",
     "LLMConfig",
     "LLMEngine",
+    "LoraConfig",
     "ModelLoadingConfig",
     "SamplingParams",
 ]

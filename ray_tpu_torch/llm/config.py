@@ -1,5 +1,6 @@
 """LLMConfig — the config object the engine is built from (own copy of
-ray_tpu/llm/config.py's LLMConfig and ModelLoadingConfig, without jax).
+ray_tpu/llm/config.py's LLMConfig, ModelLoadingConfig and LoraConfig,
+without jax).
 
 ``build_model`` builds a config of the gpt2, llama or mixtral family
 (the JAX package's factory table) and returns random weights
@@ -22,6 +23,17 @@ class ModelLoadingConfig:
 
 
 @dataclass
+class LoraConfig:
+    """Multi-LoRA serving: ``LLMEngine.from_config`` sizes its adapter bank
+    from it (max_loras, lora_rank). The serve layer, which loads adapters
+    from ``dynamic_lora_loading_path``, is not ported yet."""
+
+    dynamic_lora_loading_path: str = ""  # dir of <adapter_id>.npz files
+    max_num_adapters_per_replica: int = 4
+    lora_rank: int = 8
+
+
+@dataclass
 class LLMConfig:
     model_loading_config: ModelLoadingConfig = field(default_factory=ModelLoadingConfig)
     # the family of the built-in configs: gpt2, llama or mixtral
@@ -32,6 +44,7 @@ class LLMConfig:
     engine_kwargs: dict = field(default_factory=dict)
     deployment_config: dict = field(default_factory=dict)
     accelerator_type: str | None = "GPU"
+    lora_config: LoraConfig | None = None
 
     def build_model(self, device=None):
         """Returns (TransformerConfig, params) on `device` (cuda unless the

@@ -13,7 +13,13 @@ into the pool, and insertion writes the granted pages directly.
 ``decode_step_paged_ragged`` is the serving path: its attention core is one
 ragged launch per layer (ops/ragged_paged_attention.py — the Hopper kernel
 on the card). ``decode_step_paged`` keeps the full-table gather with a
-masked softmax as a second oracle.
+masked softmax as a second oracle (the engine's ``attn_impl="gather"``).
+
+The prefix cache and chunked prefill build on ``gather_prefix_pages`` (a
+cached prefix out of the pool), ``prefill_with_prefix`` (the continuation
+prefill: a masked dense softmax over prefix + causal suffix, as in the JAX
+package), ``write_kv_pages`` and ``activate_slot`` (the two halves of
+``insert_sequence_paged``).
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ import torch
 
 from ray_tpu_torch import ops
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.decoding import _mlp_block
+from ray_tpu_torch.models.decoding import (
+    _cache_attention, _embed_step, _finish_step, _mlp_block, release_slot)
 from ray_tpu_torch.models.transformer import (
     TransformerConfig, _attn_out, _attn_qkv, _norm, lm_logits, rope_tables,
     unstack_layers)
@@ -50,24 +57,51 @@ def init_paged_state(cfg: TransformerConfig, max_slots: int, max_len: int,
 
 
 @torch.no_grad()
+def write_kv_pages(state, kv, pages) -> dict:
+    """Write a bucketed [L, T, Hkv, Dh] KV into the first T/page_size of
+    `pages` without touching the row bookkeeping: the chunked-prefill
+    building block (chunks accumulate page by page; the row activates once
+    the whole prompt is resident, activate_slot). In place."""
+    P = state["kp"].shape[2]
+    L, T, Hkv, Dh = kv["k"].shape
+    n = T // P
+    idx = torch.as_tensor(pages, device=state["kp"].device)[:n].long()
+    state["kp"][:, idx] = kv["k"].reshape(L, n, P, Hkv, Dh).to(state["kp"].dtype)
+    state["vp"][:, idx] = kv["v"].reshape(L, n, P, Hkv, Dh).to(state["vp"].dtype)
+    return state
+
+
+def activate_slot(state, slot: int, block_row, length: int,
+                  first_token) -> dict:
+    """Turn a fully prefilled row live for decode: its block table
+    ([max_pages_per_seq] page ids, 0-padded), length and first token."""
+    state["block"][slot] = torch.as_tensor(block_row, dtype=torch.int32,
+                                           device=state["block"].device)
+    state["length"][slot] = int(length)
+    state["last_token"][slot] = torch.as_tensor(first_token).to(torch.int32)
+    state["active"][slot] = True
+    return state
+
+
 def insert_sequence_paged(state, slot: int, kv, length: int, first_token,
                           pages, cfg: TransformerConfig) -> dict:
     """Write a prefilled [L, T, Hkv, Dh] KV into the first T/page_size of
     this slot's `pages` ([max_pages_per_seq] page ids, padded with 0 — the
     engine grants every page the sequence will need up front) and activate
     the row. In place."""
-    P = state["kp"].shape[2]
-    L, T, Hkv, Dh = kv["k"].shape
-    n = T // P
-    pages = torch.as_tensor(pages, dtype=torch.int32, device=state["kp"].device)
-    idx = pages[:n].long()
-    state["kp"][:, idx] = kv["k"].reshape(L, n, P, Hkv, Dh).to(state["kp"].dtype)
-    state["vp"][:, idx] = kv["v"].reshape(L, n, P, Hkv, Dh).to(state["vp"].dtype)
-    state["block"][slot] = pages
-    state["length"][slot] = int(length)
-    state["last_token"][slot] = torch.as_tensor(first_token).to(torch.int32)
-    state["active"][slot] = True
-    return state
+    write_kv_pages(state, kv, pages)
+    return activate_slot(state, slot, pages, length, first_token)
+
+
+def insert_sequence_paged_prefix(state, slot: int, kv, suffix_pages,
+                                 block_row, length: int, first_token,
+                                 cfg: TransformerConfig) -> dict:
+    """Like insert_sequence_paged, but only the suffix KV is written (the
+    prefix already lives in shared cache pages): `suffix_pages` receive the
+    suffix bucket, `block_row` is the whole table (shared prefix ids +
+    private ids + 0-padding)."""
+    write_kv_pages(state, kv, suffix_pages)
+    return activate_slot(state, slot, block_row, length, first_token)
 
 
 def _step_inputs(state, cfg):
@@ -81,21 +115,6 @@ def _step_inputs(state, cfg):
                            torch.zeros_like(page_ids)).long()
     offsets = (pos % P).long()
     return pos, page_ids, offsets
-
-
-def _embed_step(params, state, cfg):
-    dt = cfg.dtype
-    x = params["embed"].to(dt)[state["last_token"].long()[:, None]]
-    if cfg.pos == "learned":
-        x = x + params["pos_embed"].to(dt)[state["length"].long()][:, None]
-    return x
-
-
-def _finish_step(params, state, x, cfg):
-    x = _norm(x, params["final_norm"], cfg)
-    logits = lm_logits(x[:, 0], params, cfg)
-    state["length"] += state["active"].to(torch.int32)
-    return state, logits.float()
 
 
 @torch.no_grad()
@@ -174,7 +193,71 @@ def decode_step_paged(params, state, cfg: TransformerConfig):
     return _finish_step(params, state, x, cfg)
 
 
-def release_slot_paged(state, slot: int) -> dict:
-    state["active"][slot] = False
-    state["length"][slot] = 0
-    return state
+release_slot_paged = release_slot
+
+
+# --------------------------------------------------- prefix-cache support
+# Cached blocks stay in the page pool and are gathered into a dense array
+# for the continuation prefill, as in the JAX package (no kernel there).
+
+
+def gather_prefix_pages(kp, vp, page_ids):
+    """Cached prefix KV out of the pool: page_ids [n] → k, v
+    [L, n*P, Hkv, Dh] (unused tail ids point at scratch page 0 and are
+    masked by prefix_len)."""
+    L, _, P, Hkv, Dh = kp.shape
+    ids = torch.as_tensor(page_ids, device=kp.device).long()
+    n = ids.shape[0]
+    return (kp[:, ids].reshape(L, n * P, Hkv, Dh),
+            vp[:, ids].reshape(L, n * P, Hkv, Dh))
+
+
+@torch.no_grad()
+def prefill_with_prefix(params, tokens, prefix_k, prefix_v, prefix_len: int,
+                        length: int, cfg: TransformerConfig):
+    """Continuation prefill: run only the suffix tokens [1, Ts] (padded
+    bucket; true count `length`) over a cached prefix KV [L, Tp, Hkv, Dh]
+    (valid first `prefix_len` positions, K already roped at its absolute
+    positions) plus the causal suffix: a masked dense softmax over
+    [Ts, Tp + Ts], as the JAX function computes it (the flash kernel does
+    not take this mask).
+
+    Returns (logits at the last suffix token [V] f32,
+             suffix kv {k, v: [L, Ts, Hkv, Dh]}).
+    """
+    dt = cfg.dtype
+    B, Ts = tokens.shape
+    Tp = prefix_k.shape[1]
+    dev = tokens.device
+    # positions past the tables clamp, as the JAX gathers do
+    pos = (int(prefix_len) + torch.arange(Ts, device=dev)).clamp(
+        max=cfg.max_seq_len - 1)
+    x = params["embed"].to(dt)[tokens]
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"].to(dt)[pos][None]
+    cos, sin = rope_tables(cfg, x.device)
+    ar_p = torch.arange(Tp, device=dev)
+    ar_s = torch.arange(Ts, device=dev)
+    mask = torch.cat([(ar_p[None, :] < int(prefix_len)).expand(Ts, Tp),
+                      ar_s[:, None] >= ar_s[None, :]], dim=1)[None]
+    G = cfg.n_heads // cfg.kv_heads
+    L, Hkv, Dh = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+    kv_k = torch.empty((L, Ts, Hkv, Dh), dtype=dt, device=dev)
+    kv_v = torch.empty_like(kv_k)
+    for i, lp in enumerate(unstack_layers(params)):
+        q, k, v = _attn_qkv(_norm(x, lp["norm1"], cfg), lp["attn"], cfg)
+        if cfg.pos == "rope":
+            q = ops.apply_rope(q, cos, sin, positions=pos)
+            k = ops.apply_rope(k, cos, sin, positions=pos)
+        k_all = torch.cat([prefix_k[i][None].to(dt), k], dim=1)
+        v_all = torch.cat([prefix_v[i][None].to(dt), v], dim=1)
+        qh = q.reshape(B, Ts, Hkv, G, Dh)
+        out = _cache_attention(qh, k_all, v_all, mask, dt, Dh)
+        x = x + _attn_out(out.reshape(B, Ts, cfg.n_heads, Dh), lp["attn"],
+                          cfg)
+        x = x + _mlp_block(_norm(x, lp["norm2"], cfg), lp, cfg)
+        kv_k[i] = k[0]
+        kv_v[i] = v[0]
+    x = _norm(x, params["final_norm"], cfg)
+    logits = lm_logits(x[0, int(length) - 1], params, cfg)
+    return logits.float(), {"k": kv_k, "v": kv_v}

@@ -1,5 +1,8 @@
 """ray_tpu_torch.llm.LLMEngine against ray_tpu's TPUEngine on the CPU, plus
-the port's device and not-yet-ported rules and its jax-free import."""
+the port's device and not-yet-ported rules and its jax-free import. The
+engine's other options are held to TPUEngine in test_torch_engine_slot.py,
+test_torch_prefix_chunk.py, test_torch_speculative.py, test_torch_lora.py
+and test_torch_guided.py."""
 
 import os
 import subprocess
@@ -134,24 +137,16 @@ def test_engine_expired_deadline_refused_at_admission(tiny):
         eng.shutdown()
 
 
-@pytest.mark.parametrize("knob", [
-    {"kv_layout": "slot"}, {"enable_prefix_cache": True},
-    {"prefill_chunk": 16}, {"speculative_k": 2}, {"max_loras": 2},
-    {"mesh": object()}])
-def test_engine_unported_knobs_raise(tiny, knob):
+def test_engine_unported_knobs_raise(tiny):
     _, _, tcfg, tparams = tiny
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LLMEngine(tcfg, tparams, device="cpu", **{**ENGINE, **knob})
+        LLMEngine(tcfg, tparams, device="cpu", **{**ENGINE, "mesh": object()})
 
 
 def test_engine_unported_request_options_raise(tiny):
     _, _, tcfg, tparams = tiny
     eng = LLMEngine(tcfg, tparams, device="cpu", **ENGINE)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit([1, 2], SamplingParams(guided=object()))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit([1, 2], lora="a")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.submit_prefilled(length=3)
     finally:
@@ -228,7 +223,7 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch, ray_tpu_torch.ops, ray_tpu_torch.models\n"
         "import ray_tpu_torch.llm, ray_tpu_torch.exceptions\n"
         "import ray_tpu_torch.ops._build, ray_tpu_torch.models.convert\n"
-        "import ray_tpu_torch.llm.checkpoint_io\n"
+        "import ray_tpu_torch.llm.checkpoint_io, ray_tpu_torch.llm.guided\n"
         "import ray_tpu_torch.train, ray_tpu_torch.benchmarks\n"
         "import ray_tpu_torch.benchmarks.train_step\n"
         "import ray_tpu_torch.ops.moe, ray_tpu_torch.models.vit\n"
