@@ -32,6 +32,9 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    - untimed, at GPT-2's shapes (phase 9): the forward on [1,12,1024,64]
      causal with as many kv heads as q heads, and ragged decode with
      Hkv=12, G=1, Dh=64, P=64 over a 16-page table;
+   - timed, at the shapes of a tensor-parallel rank of Llama-3-8B at tp = 2
+     (phase 11): the forward on [1,16,2048,128] causal over 4 kv heads, and
+     ragged decode with Hkv=4, G=4, Dh=128, P=64 at pages_bound 32;
    - flash backward (dQ and dK/dV kernels) on [4,32,2048,64] causal
      (training), [1,32,2048,128] causal and [1,32,1024,64] full, timed,
      and on one- and two-tile sequences untimed; each gradient within
@@ -105,6 +108,34 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    ended by EOS). Flash forward = layers x prefill calls, ragged = layers x
    decode steps on the paged ragged runs and 0 elsewhere, no backward
    kernel.
+
+11. Multi-GPU (ray_tpu_torch.parallel) on the one card. No multi-rank NCCL
+   path can run here: NCCL refuses two ranks on one GPU.
+   a. A world of one over NCCL: ``MeshSpec().build()`` on a real NCCL
+      group; Llama-3.2-1B at phase 6's config takes 3 steps through the
+      meshed ``make_train_step`` (dp = 1: every gradient is allreduced over
+      the one-rank group) and 3 through the unmeshed step from the same
+      params and batch. Losses and params must be equal bit for bit (the
+      stated bound is 0: a one-rank allreduce copies, and both runs launch
+      the same kernels on the same data); launches per step equal phase
+      6's, and the collective calls per step (all on CUDA tensors) > 0.
+   b. Two ranks sharing the card over gloo, Llama-3-8B at full width and
+      depth, tp = 2. First the main process computes, from seed-0 weights,
+      a 1000-token prefill and 2 teacher-forced ragged decode steps with
+      the kernels (tp = 1) and with f32 compute, then frees them; each
+      rank builds the same weights, keeps its tensor-parallel cut and runs
+      the same steps, held to the tp = 1 rows by phase 3's bounds
+      (``hold``; the allreduce sums in another order, so bf16 is not
+      token-exact). Then ``LLMEngine.from_config(mesh=tp 2)``, paged, serves
+      phase 4's 8 prompts on both ranks: both ranks emit the same tokens,
+      32 ragged launches per decode step and 32 flash launches per prefill
+      on each rank's pool of 4 kv heads, no backward launch. Its times are
+      labelled "2 ranks sharing one H100 over gloo": they are no multi-GPU
+      numbers.
+   c. ``parallel.dryrun.dryrun_multichip(4)`` over gloo, 4 ranks on the
+      card: the tiny gspmd Mixtral step (dp x ep x tp), the pp x sp step
+      (GPipe, ring attention) and the tp = 4 decode, every program on CUDA
+      tensors (gloo takes every collective ``parallel/`` calls on them).
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1345,6 +1376,317 @@ def serve_options(torch, kernels, card: str) -> dict:
     return {name: row["launches"] for name, row in runs.items()}
 
 
+# ----------------------------------------------------------------- phase 11
+
+TP = 2
+HOLD_PROMPT, HOLD_BUCKET = 1000, 1024
+
+
+def mesh_train(torch, kernels) -> dict:
+    """11a: a world of one over NCCL. Llama-3.2-1B (phase 6's config, batch
+    4 x 2048) takes 3 steps through the meshed make_train_step, then 3
+    through the unmeshed step from the same params and batch; both must
+    agree bit for bit."""
+    import datetime
+    import functools
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.benchmarks.train_step import LR, WEIGHT_DECAY
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.parallel import MeshSpec, collectives
+
+    dev = torch.device("cuda")
+    cfg = train_config()
+    steps, batch, seq = 3, 4, 2048
+    rng = np.random.default_rng(SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          size=(batch, seq + 1)), device=dev)
+
+    def loss_fn(p, b):
+        return transformer.loss_fn(p, b, cfg)
+
+    factory = functools.partial(tr.adamw, learning_rate=LR,
+                                weight_decay=WEIGHT_DECAY)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous",
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = MeshSpec().build()
+        backend = dist.get_backend()
+        step, shard_params, batch_sharding = tr.make_train_step(
+            loss_fn, factory, mesh=mesh,
+            logical_axes=transformer.logical_axes(cfg))
+        params = shard_params(transformer.init(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, dev))
+        state = factory(params)
+        local = batch_sharding.shard(tokens)
+        torch.cuda.synchronize()
+        zero(kernels)  # the meshed path starts here
+        collectives.calls.clear()
+        meshed_losses, step_ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, loss = step(params, state, local)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            meshed_losses.append(loss)
+        launches = counts(kernels)
+        calls = dict(collectives.calls)
+        meshed = [p.detach() for p in tr.param_leaves(params)]
+        del state, params
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
+                              cfg, dev)
+    opt = tr.adamw(params, LR, weight_decay=WEIGHT_DECAY)
+    plain_step = tr.make_train_step(loss_fn, opt)
+    plain_losses, plain_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, _, loss = plain_step(params, opt.state, tokens)
+        torch.cuda.synchronize()
+        plain_ms.append(1e3 * (time.perf_counter() - t0))
+        plain_losses.append(loss)
+    loss_diff = max(abs(a.item() - b.item())
+                    for a, b in zip(meshed_losses, plain_losses))
+    param_diff = max((a.float() - b.detach().float()).abs().max().item()
+                     for a, b in zip(meshed, tr.param_leaves(params)))
+    del meshed, params, opt
+    torch.cuda.empty_cache()
+    if loss_diff != 0.0 or param_diff != 0.0:
+        fail(f"meshed step (world of one) vs unmeshed: max loss diff "
+             f"{loss_diff}, max param diff {param_diff}; the bound is 0")
+    L = cfg.n_layers
+    per_step = {k: n / steps for k, n in launches.items()}
+    want = {"flash_attention_fwd_bf16": 2 * L,
+            "flash_attention_bwd_dkv_bf16": L,
+            "flash_attention_bwd_dq_bf16": L,
+            "ragged_paged_attention_bf16": 0}
+    if per_step != want:
+        fail(f"meshed step launches per step {per_step}, expected phase "
+             f"6's {want}")
+    calls_per_step = {k: n / steps for k, n in calls.items()}
+    if not calls_per_step or min(calls_per_step.values()) <= 0:
+        fail(f"meshed step issued no collective: {calls}")
+    return {"backend": backend, "mesh": "MeshSpec() world of one",
+            "model": "llama-3.2-1b (tied, random init)", "batch": batch,
+            "seq": seq, "steps": steps,
+            "losses": [x.item() for x in meshed_losses],
+            "max_loss_diff": loss_diff, "max_param_diff": param_diff,
+            "bound": 0.0, "launches": launches,
+            "launches_per_step": per_step,
+            "collective_calls_per_step": calls_per_step,
+            # host clock, a sync after each step; the first step also
+            # creates the NCCL communicators and the AdamW state
+            "meshed_step_ms": step_ms, "unmeshed_step_ms": plain_ms}
+
+
+def hold_rows(torch, params, cfg, impl, forced=None):
+    """Logits [3, V] (f32, on the host) of a HOLD_PROMPT-token prefill at
+    bucket HOLD_BUCKET and 2 ragged paged decode steps, the decode inputs
+    teacher-forced with `forced` (default: this run's own argmax). The
+    pool has the head counts of `params` (a tensor-parallel rank's, under
+    its mesh). Returns (rows, the tokens fed)."""
+    import dataclasses
+
+    import numpy as np
+
+    from ray_tpu_torch.models import decoding, transformer
+    from ray_tpu_torch.models import decoding_paged as dp
+
+    dev = params["embed"].device
+    H, Hkv = transformer.local_heads(params)
+    state_cfg = dataclasses.replace(cfg, n_heads=H, n_kv_heads=Hkv,
+                                    d_head=cfg.head_dim)
+    P, max_len = 64, 2048
+    rng = np.random.default_rng(SEED + 11)
+    padded = np.zeros((1, HOLD_BUCKET), np.int64)
+    padded[0, :HOLD_PROMPT] = rng.integers(0, cfg.vocab_size,
+                                           size=HOLD_PROMPT)
+    logits, kv = decoding.prefill(params, torch.as_tensor(padded, device=dev),
+                                  HOLD_PROMPT, cfg, attn_impl=impl)
+    rows, fed = [logits], []
+    nxt = int(torch.argmax(logits)) if forced is None else forced[0]
+    state = dp.init_paged_state(state_cfg, 8, max_len, max_len // P + 1, P,
+                                dev)
+    dp.insert_sequence_paged(state, 0, kv, HOLD_PROMPT, nxt,
+                             np.arange(1, max_len // P + 1, dtype=np.int32),
+                             cfg)
+    fed.append(nxt)
+    for step in range(2):
+        bound = 1 << ((HOLD_PROMPT + step) // P).bit_length()
+        state, lg = dp.decode_step_paged_ragged(params, state, cfg, bound,
+                                                impl=impl)
+        rows.append(lg[0])
+        if step == 0:
+            nxt = int(torch.argmax(lg[0])) if forced is None else forced[1]
+            fed.append(nxt)
+            decoding.commit_tokens(state, torch.full(
+                (8,), nxt, dtype=torch.int32, device=dev))
+    out = torch.stack([r.float() for r in rows]).cpu()
+    del state, kv
+    return out, fed
+
+
+def tp_serve_rank(forced, lengths):
+    """One rank of 11b: Llama-3-8B's tensor-parallel cut (tp = 2) from the
+    seed-0 weights, the hold rows teacher-forced with `forced`, then
+    LLMEngine.from_config(mesh=tp 2) serving phase 4's prompts."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.llm import (LLMConfig, LLMEngine, ModelLoadingConfig,
+                                   SamplingParams)
+    from ray_tpu_torch.llm.engine import shard_params_tp
+    from ray_tpu_torch.models import llama, transformer
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import ragged_paged_attention as ra
+    from ray_tpu_torch.parallel import MeshSpec, collectives, use_mesh
+
+    kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = MeshSpec(tp=TP).build()
+    cfg = llama.llama_config("8b")
+    full = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
+                            cfg, dev, dtype=cfg.dtype)
+    params = shard_params_tp(full, mesh)
+    del full
+    torch.cuda.empty_cache()
+    with use_mesh(mesh):
+        rows, _ = hold_rows(torch, params, cfg, None, forced)
+        # one gloo allreduce on CUDA tensors at a decode step's [8, 1, E]
+        # and a bucket-1024 prefill's [1, 1024, E] (bf16), host clock
+        gloo_ms = {}
+        for name, shape in (("decode_8x1", (8, 1, cfg.d_model)),
+                            ("prefill_1024", (1, 1024, cfg.d_model))):
+            x = torch.ones(shape, dtype=cfg.dtype, device=dev)
+            collectives.allreduce(x, "tp")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                collectives.allreduce(x, "tp")
+            torch.cuda.synchronize()
+            gloo_ms[name] = 1e3 * (time.perf_counter() - t0) / 20
+    kv_heads = transformer.local_heads(params)[1]
+    del params
+    torch.cuda.empty_cache()
+    eng = LLMEngine.from_config(LLMConfig(
+        model_family="llama",
+        model_loading_config=ModelLoadingConfig(model_id="8b"),
+        engine_kwargs={"kv_layout": "paged", "page_size": 64, "max_slots": 8,
+                       "max_len": 2048, "seed": SEED, "mesh": mesh}))
+    try:
+        rng = np.random.default_rng(SEED + 1)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+                   for n in lengths]
+        torch.cuda.synchronize()
+        zero(kernels)  # this rank's main path starts here
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, SamplingParams(max_tokens=32, temperature=0.0))
+                for p in prompts]
+        outs = [list(r) for r in reqs]
+        wall = time.perf_counter() - t0
+        launches = counts(kernels)
+        st = eng.stats()
+        pool = tuple(eng.state["kp"].shape)
+    finally:
+        eng.shutdown()
+    return {"rows": rows.numpy(), "outs": outs, "launches": launches,
+            "stats": st, "wall_s": wall, "pool": pool, "gloo_ms": gloo_ms,
+            "kv_heads": kv_heads, "memory_gib":
+            torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def serve_tp(torch, card: str) -> dict:
+    """11b: the hold rows at tp = 1 and f32 here, then 2 ranks over gloo on
+    the card (see the module docstring)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import llama, transformer
+    from ray_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    cfg = llama.llama_config("8b")
+    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
+                              cfg, dev, dtype=cfg.dtype)
+    f32, forced = hold_rows(torch, params, dataclasses.replace(
+        cfg, dtype=torch.float32), "reference")
+    tp1, _ = hold_rows(torch, params, cfg, None, forced)
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(tp_serve_rank, TP, args=(forced, SERVE_LENGTHS),
+                   backend="gloo", device="cuda", timeout=600, threads=None)
+    spawn_s = time.perf_counter() - t0
+    label = f"{TP} ranks sharing one H100 over gloo"
+    rows = []
+    for what, i in (("prefill", 0), ("decode 0", 1), ("decode 1", 2)):
+        for r, res in enumerate(ranks):
+            row = {"step": what, "rank": r, **logit_row(
+                torch, f"tp={TP} {what} rank {r}",
+                torch.as_tensor(res["rows"][i]), tp1[i], f32[i])}
+            hold(f"tp={TP} {what} rank {r}", row)
+            rows.append(row)
+    if ranks[0]["outs"] != ranks[1]["outs"]:
+        fail(f"tp={TP} ranks emitted different tokens")
+    n_layers = cfg.n_layers
+    for r, res in enumerate(ranks):
+        st, n = res["stats"], res["launches"]
+        for out in res["outs"]:
+            if len(out) != 32 or not all(0 <= t < cfg.vocab_size for t in out):
+                fail(f"tp rank {r}: a request gave {len(out)} tokens")
+        if n["ragged_paged_attention_bf16"] != n_layers * st["decode_steps"]:
+            fail(f"tp rank {r}: ragged launches {n} != {n_layers} x "
+                 f"{st['decode_steps']} decode steps")
+        if n["flash_attention_fwd_bf16"] != n_layers * st["prefills"]:
+            fail(f"tp rank {r}: flash launches {n} != {n_layers} x "
+                 f"{st['prefills']} prefills")
+        if n["flash_attention_bwd_dkv_bf16"] or n["flash_attention_bwd_dq_bf16"]:
+            fail(f"tp rank {r}: a backward kernel launched while serving")
+        if res["pool"][3] != cfg.kv_heads // TP:
+            fail(f"tp rank {r}: pool {res['pool']} is not 4 kv heads")
+    st = ranks[0]["stats"]
+    return {"label": label, "card": card, "model": "llama-3-8b random init bf16",
+            "tp": TP, "hold": rows, "forced_tokens": forced,
+            "requests": len(SERVE_LENGTHS), "prompt_lengths": SERVE_LENGTHS,
+            "same_tokens_on_every_rank": True,
+            "launches_by_rank": [r["launches"] for r in ranks],
+            "decode_steps": st["decode_steps"], "prefills": st["prefills"],
+            "prefill_ms_mean": 1e3 * st["prefill_seconds"] / st["prefills"],
+            "decode_step_ms_mean": 1e3 * st["decode_seconds"]
+            / st["decode_steps"],
+            "wall_s": ranks[0]["wall_s"], "spawn_to_done_s": spawn_s,
+            "pool_shape": ranks[0]["pool"],
+            "gloo_allreduce_ms_by_rank": [r["gloo_ms"] for r in ranks],
+            "max_memory_gib_by_rank": [r["memory_gib"] for r in ranks]}
+
+
+def dryrun_tp(torch) -> dict:
+    """11c: the dryrun twin on 4 ranks sharing the card over gloo."""
+    from ray_tpu_torch.parallel import dryrun
+
+    # gloo takes all_reduce (sum, max), all_gather and all_to_all_single
+    # (even and uneven splits) on f32 and bf16 CUDA tensors, the only calls
+    # parallel/ makes (its send/recv, which parallel/ never calls, take CPU
+    # tensors only), so every program runs on the card
+    print("dryrun: every program on CUDA tensors (gloo takes every "
+          "collective parallel/ calls on them)", flush=True)
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(4, device="cuda", backend="gloo",
+                                  timeout=600)
+    return {"label": "4 ranks sharing one H100 over gloo", "device": "cuda",
+            "wall_s": time.perf_counter() - t0,
+            "rank0": res[0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
@@ -1417,6 +1759,12 @@ def main() -> int:
     checks.append(check_ragged(torch, rin, 16, False, label=" Hkv=12 G=1 "
                                "Dh=64"))
     del rin
+    # a tensor-parallel rank's shapes (phase 11): Llama-3-8B at tp = 2
+    checks.append(check_flash(torch, gen, 2048, True, timed=True, H=16,
+                              Hkv=4))
+    rin = ragged_inputs(torch, gen, Hkv=4, G=4)
+    checks.append(check_ragged(torch, rin, 32, timed=True, label=" Hkv=4 G=4"))
+    del rin
     # the backward at the training path's shape (Llama-3.2-1B, batch 4),
     # at head_dim 128, full attention, and a one-tile sequence
     checks += [check_flash_bwd(torch, gen, 4, 2048, 64, True, timed=True),
@@ -1432,7 +1780,8 @@ def main() -> int:
     all_kernels = flash_kernels + [ra.KERNEL]
     launches = {"serve": {}, "train": {}, "serve_mixtral": {},
                 "serve_gpt2": {}, "vit": {},
-                **{f"engine_{r}": {} for r in ENGINE_RUNS}}
+                **{f"engine_{r}": {} for r in ENGINE_RUNS},
+                "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral
 
@@ -1499,6 +1848,19 @@ def main() -> int:
         for name, n in serve_options(torch, all_kernels, card).items():
             launches[f"engine_{name}"] = n
         torch.cuda.empty_cache()
+        # phase 11: multi-GPU on the one card
+        meshed = mesh_train(torch, all_kernels)
+        launches["mesh_train"] = meshed["launches"]
+        print(json.dumps({"card": card, "mesh_train": meshed}), flush=True)
+        tp = serve_tp(torch, card)
+        launches["serve_tp_rank0"], launches["serve_tp_rank1"] = \
+            tp["launches_by_rank"]
+        print(json.dumps({"card": card, "serve_tp": tp}), flush=True)
+        print(f"serve llama-3-8b tp={TP} ({tp['label']}, {card}): prefill "
+              f"{tp['prefill_ms_mean']:.3f} ms mean, decode step "
+              f"{tp['decode_step_ms_mean']:.3f} ms mean", flush=True)
+        dry = dryrun_tp(torch)
+        print(json.dumps({"card": card, "dryrun": dry}), flush=True)
 
     def case(name):
         return next(c for c in checks if c["case"] == name)

@@ -38,8 +38,25 @@ and the paged ragged decode step the ragged paged kernel (as in
 ray_tpu/llm/engine.py:306-307, iff the device can run it); the slot and
 verify steps, the gather step and the continuation prefill are plain
 PyTorch, as their JAX counterparts use no Pallas kernel. PD
-``submit_prefilled`` and a multi-GPU mesh are not ported yet: asking for
-one raises and names its ROADMAP.md item.
+``submit_prefilled`` is not ported yet: asking for it raises and names its
+ROADMAP.md item.
+
+Tensor parallelism, ``mesh=`` (a DeviceMesh with a "tp" dimension, every
+other dimension of size 1): every rank of the mesh builds the same engine
+from the same full params and runs the same scheduler on the same
+requests (submitted in the same order on every rank). A rank keeps the
+counterpart of the JAX engine's ``_shard_params_tp`` cut: its contiguous
+slice of the attention heads (tp | n_kv_heads, so each GQA group stays on
+one rank) and of the dense mlp hidden dim, everything else replicated; its
+KV cache or page pool is its own contiguous tensor of n_kv_heads / tp
+heads, so the ragged kernel runs on the rank's pool (the JAX engine turns
+its Pallas kernel off under a mesh only because a GSPMD array is not a
+local one). The blocks allreduce their partial outputs over tp. Every
+scheduler pass starts with one small allreduce that makes the ranks agree
+on how many requests and aborts they have all received, on shutdown and on
+the clock the deadlines are read against; sampled tokens are broadcast
+from tp rank 0. A rank whose scheduler dies leaves the others waiting in
+a collective until the process group's timeout.
 """
 
 from __future__ import annotations
@@ -62,6 +79,9 @@ from ray_tpu_torch.models import decoding
 from ray_tpu_torch.models import decoding_paged as dp
 from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.ops import flash_attention
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import (MESH_AXIS_TP, axis_rank,
+                                         mesh_shape, use_mesh)
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -145,6 +165,63 @@ def bucket_for(n: int, min_bucket: int, max_len: int) -> int:
     return min(b, max_len)
 
 
+def _check_tp_mesh(mesh, cfg: TransformerConfig) -> int:
+    """The tp degree of an engine mesh, after checking the mesh."""
+    import torch.distributed as dist
+
+    if not hasattr(mesh, "mesh_dim_names") or not hasattr(mesh, "get_group"):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh with a "
+                        f"'tp' dimension, got {mesh!r}")
+    if not dist.is_available() or not dist.is_initialized():
+        raise RuntimeError("the mesh's process group is not initialised "
+                           "(start the ranks with parallel.launch)")
+    shape = mesh_shape(mesh)
+    if MESH_AXIS_TP not in shape or any(
+            n != 1 for a, n in shape.items() if a != MESH_AXIS_TP):
+        raise ValueError(f"the engine shards over one 'tp' dimension (every "
+                         f"other of size 1); got {shape}")
+    tp = shape[MESH_AXIS_TP]
+    if cfg.kv_heads % tp or cfg.n_heads % tp or cfg.d_ff % tp:
+        raise ValueError(
+            f"tp={tp} must divide n_kv_heads {cfg.kv_heads} (each GQA group "
+            f"stays on one rank), n_heads {cfg.n_heads} and d_ff {cfg.d_ff}")
+    return tp
+
+
+def _tp_split_dim(path: tuple) -> int | None:
+    """The dim the engine's tensor-parallel cut splits a leaf on (the JAX
+    engine's ``_shard_params_tp`` rule), or None (replicated)."""
+    if path[0] != "layers":
+        return None
+    group, name = path[1], path[-1]
+    if group == "attn":
+        return {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1,
+                "bv": 1}.get(name)
+    if group == "mlp":  # the dense mlp's hidden dim; MoE experts replicate
+        return {"wi": 2, "wi_gate": 2, "wi_up": 2, "wo": 1,
+                "bi": 1}.get(name)
+    return None
+
+
+def shard_params_tp(params: dict, mesh) -> dict:
+    """This rank's tensor-parallel cut of the full param tree: contiguous
+    slices of the heads and dense mlp hidden dim, the rest shared with the
+    full tree (no copy)."""
+    tp = mesh_shape(mesh)[MESH_AXIS_TP]
+    r = axis_rank(mesh, MESH_AXIS_TP)
+
+    def cut(tree, path):
+        if isinstance(tree, dict):
+            return {k: cut(v, path + (k,)) for k, v in tree.items()}
+        d = _tp_split_dim(path)
+        if d is None:
+            return tree
+        n = tree.shape[d] // tp
+        return tree.narrow(d, r * n, n).contiguous()
+
+    return cut(params, ())
+
+
 def _pow2_at_least(n: int) -> int:
     b = 1
     while b < n:
@@ -167,10 +244,17 @@ class LLMEngine:
                  speculative_k: int = 0, ngram_size: int = 2,
                  mesh=None, max_loras: int = 0, lora_rank: int = 8,
                  attn_impl: str = "auto", device=None):
-        if mesh is not None:
-            raise _not_ported("mesh (multi-GPU serving)")
         self.device = resolve_device(device)
         self.cfg = cfg
+        self.mesh = mesh
+        # the state's (and LoRA bank's) head counts: this rank's
+        state_cfg = cfg
+        if mesh is not None:
+            tp = _check_tp_mesh(mesh, cfg)
+            params = shard_params_tp(params, mesh)
+            state_cfg = dataclasses.replace(
+                cfg, n_heads=cfg.n_heads // tp,
+                n_kv_heads=cfg.kv_heads // tp, d_head=cfg.head_dim)
         self.params = params
         self.max_len = max_len or cfg.max_seq_len
         if self.max_len > cfg.max_seq_len:
@@ -233,9 +317,9 @@ class LLMEngine:
             # lower to oversubscribe device memory against short sequences
             self.num_pages = num_pages or (max_slots * self.max_pages_per_seq
                                            + 1)
-            self.state = dp.init_paged_state(cfg, max_slots, self.max_len,
-                                             self.num_pages, page_size,
-                                             self.device)
+            self.state = dp.init_paged_state(state_cfg, max_slots,
+                                             self.max_len, self.num_pages,
+                                             page_size, self.device)
             self._free_pages = list(range(1, self.num_pages))  # 0 = scratch
             self._slot_pages: dict[int, list] = {}
             # hash-block prefix cache over the same page pool
@@ -257,7 +341,7 @@ class LLMEngine:
             if prefill_chunk is not None:
                 raise ValueError("prefill_chunk requires kv_layout='paged'")
             attn_impl = "gather"
-            self.state = decoding.init_decode_state(cfg, max_slots,
+            self.state = decoding.init_decode_state(state_cfg, max_slots,
                                                     self.max_len, self.device)
         self.attn_impl = attn_impl
         self._ragged_kernel = (attn_impl == "ragged"
@@ -286,7 +370,7 @@ class LLMEngine:
                     "max_loras and speculative_k cannot be combined (the "
                     "verify step has no LoRA gather)")
             self.lora_bank = decoding.init_lora_bank(
-                cfg, self.max_loras, self.lora_rank, self.device)
+                state_cfg, self.max_loras, self.lora_rank, self.device)
             self._lora_free = list(range(1, self.max_loras + 1))
             self._lora_ids: dict[str, int] = {}   # name → bank index
             self._lora_refs: dict[int, int] = {}  # index → live requests
@@ -323,13 +407,22 @@ class LLMEngine:
         self._work = threading.Event()
         self._stop = False
         self._error: BaseException | None = None
-        # cancellation plane: abort_request() rids land in _abort_q; the
-        # scheduler applies them at the top of its next pass. Rids whose
-        # request is still in _waiting stay in _abort_pending (monotonic
-        # stamp) until _admit pops the request; stale ones age out.
-        self._abort_q: queue.SimpleQueue = queue.SimpleQueue()
+        # cancellation plane: abort_request() rids land in _abort_log, in
+        # call order; the scheduler applies the agreed ones at the top of
+        # its next pass. Rids whose request is still in _waiting stay in
+        # _abort_pending (stamped with the pass's clock) until _admit pops
+        # the request; stale ones age out.
         self._abort_pending: dict[int, float] = {}
         self.aborts = 0
+        # what the engine has received (submissions, aborts), agreed at the
+        # top of each pass: under a mesh, the counts every rank has
+        self._submitted = 0
+        self._taken = 0
+        self._agreed_submitted = 0
+        self._abort_log: list = []
+        self._agreed_aborts = 0
+        self._count_lock = threading.Lock()
+        self._now = time.time()  # the pass's clock (agreed under a mesh)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine")
         self._thread.start()
@@ -376,9 +469,19 @@ class LLMEngine:
         """Load adapter `name` into a free bank slot. `weights` are
         layer-stacked host arrays {"A_q": [L, E, r], "B_q": [L, r, H, Dh],
         "A_v": [L, E, r], "B_v": [L, r, Hkv, Dh]} (missing targets stay
-        zero). Scale is alpha/r, 1.0 when alpha is None."""
+        zero; under a mesh every rank loads the full adapter and keeps its
+        heads' B). Scale is alpha/r, 1.0 when alpha is None."""
         if self.lora_bank is None:
             raise ValueError("engine built without max_loras")
+        if self.mesh is not None:  # B factors: this rank's heads
+            tp = mesh_shape(self.mesh)[MESH_AXIS_TP]
+            r = axis_rank(self.mesh, MESH_AXIS_TP)
+            weights = dict(weights)
+            for key in ("B_q", "B_v"):
+                if key in weights:
+                    w = np.asarray(weights[key])
+                    n = w.shape[2] // tp
+                    weights[key] = w[:, :, r * n:(r + 1) * n]
         with self._lora_lock:
             if name in self._lora_ids:
                 raise ValueError(f"lora {name!r} already loaded")
@@ -501,7 +604,9 @@ class LLMEngine:
         req = _Request(next(self._rid), token_ids, params,
                        history=list(token_ids), lora_idx=lora_idx,
                        deadline_ts=float(deadline_ts or 0.0))
-        self._waiting.put(req)
+        with self._count_lock:
+            self._waiting.put(req)
+            self._submitted += 1
         self._work.set()
         return req
 
@@ -524,7 +629,8 @@ class LLMEngine:
         slot and pages at the top of its next pass, and the caller's
         iterator raises RequestCancelledError. Thread-safe; an unknown or
         finished rid is a no-op that ages out."""
-        self._abort_q.put(int(rid))
+        with self._count_lock:
+            self._abort_log.append(int(rid))
         self._work.set()
 
     def shutdown(self):
@@ -679,8 +785,15 @@ class LLMEngine:
             logits = logits + torch.as_tensor(
                 _guided.bias_row(g, g.start, remaining=req.params.max_tokens),
                 device=logits.device)
-        return decoding.sample(logits[None, :], self._gen,
-                               req.params.temperature, req.params.top_k)
+        return self._agree(decoding.sample(
+            logits[None, :], self._gen, req.params.temperature,
+            req.params.top_k))
+
+    def _agree(self, toks):
+        """Sampled token ids, the same on every rank: tp rank 0's."""
+        if self.mesh is None:
+            return toks
+        return collectives.broadcast(toks, MESH_AXIS_TP, root=0)
 
     def _bind_slot(self, req: _Request, slot: int, length: int) -> None:
         """Slot activation bookkeeping shared by every admission path:
@@ -716,10 +829,14 @@ class LLMEngine:
     def _next_waiting(self):
         if self._backlog:
             return self._backlog.pop(0)
+        if self._taken >= self._agreed_submitted:
+            return None  # not agreed yet (under a mesh: not on every rank)
         try:
-            return self._waiting.get_nowait()
+            req = self._waiting.get_nowait()
         except queue.Empty:
             return None
+        self._taken += 1
+        return req
 
     def _tokens(self, toks: list, bucket: int):
         padded = np.zeros((1, bucket), np.int64)
@@ -951,9 +1068,9 @@ class LLMEngine:
             draft[slot] = self._propose_drafts(req)
         self.state, logits = decoding.verify_step(
             self.params, self.state, draft, self.cfg, K)
-        toks = decoding.sample_per_row(
+        toks = self._agree(decoding.sample_per_row(
             logits.reshape(S * K, logits.shape[-1]), self._gen,
-            self._temps.repeat_interleave(K), self._topks.repeat_interleave(K))
+            self._temps.repeat_interleave(K), self._topks.repeat_interleave(K)))
         toks_host = toks.cpu().numpy().reshape(S, K)
         counts = np.zeros((S,), np.int32)
         last = np.zeros((S,), np.int32)
@@ -1035,13 +1152,13 @@ class LLMEngine:
         self.aborts += 1
         return True
 
-    def _apply_aborts(self) -> None:
-        now = time.monotonic()
-        while True:
-            try:
-                self._abort_pending.setdefault(self._abort_q.get_nowait(), now)
-            except queue.Empty:
-                break
+    def _apply_aborts(self, now: float) -> None:
+        with self._count_lock:
+            agreed = self._abort_log[:self._agreed_aborts]
+            del self._abort_log[:self._agreed_aborts]
+        self._agreed_aborts = 0
+        for rid in agreed:
+            self._abort_pending.setdefault(rid, now)
         if not self._abort_pending:
             return
         for req in (list(self._by_slot.values()) + list(self._prefilling)
@@ -1053,8 +1170,7 @@ class LLMEngine:
             if now - t > 120.0:
                 del self._abort_pending[rid]
 
-    def _expire_deadlines(self) -> None:
-        now = time.time()
+    def _expire_deadlines(self, now: float) -> None:
         for reqs in (self._by_slot.values(), self._prefilling, self._backlog):
             for req in list(reqs):
                 if req.deadline_ts and now > req.deadline_ts:
@@ -1067,7 +1183,7 @@ class LLMEngine:
         if self._abort_pending.pop(req.rid, None) is not None:
             err: BaseException = RequestCancelledError(
                 f"request {req.rid} cancelled before admission")
-        elif req.deadline_ts and time.time() > req.deadline_ts:
+        elif req.deadline_ts and self._now > req.deadline_ts:
             err = DeadlineExceededError(
                 f"request {req.rid} deadline expired during queue wait")
         else:
@@ -1123,40 +1239,68 @@ class LLMEngine:
                 remaining=r.params.max_tokens - r.generated)
         return torch.as_tensor(bias, device=self.device)
 
+    def _sync_pass(self) -> bool:
+        """The pass's agreed requests, aborts, clock and stop: the engine's
+        own, and under a mesh one allreduce over tp makes every rank agree
+        on the requests and aborts all ranks have received (the minimum
+        counts), on the clock (the earliest) and on stopping (if any rank
+        stops). False when the engine stops."""
+        with self._count_lock:
+            got = [-float(self._submitted), -float(len(self._abort_log)),
+                   float(self._stop), -time.time()]
+        if self.mesh is not None:
+            got = collectives.allreduce_max(
+                torch.tensor(got, dtype=torch.float64, device=self.device),
+                MESH_AXIS_TP).tolist()
+        self._agreed_submitted = int(-got[0])
+        self._agreed_aborts = int(-got[1])
+        self._now = -got[3]
+        return got[2] == 0.0
+
+    def _idle(self) -> bool:
+        return (not self._by_slot and self._waiting.empty()
+                and not self._backlog and not self._prefilling)
+
     def _loop_inner(self):
-        while not self._stop:
-            # aborted and expired rows are back in the pool before this
-            # pass admits or steps anything
-            self._apply_aborts()
-            self._expire_deadlines()
-            if (not self._by_slot and self._waiting.empty()
-                    and not self._backlog and not self._prefilling):
-                self._work.wait(timeout=0.1)
-                self._work.clear()
-                continue
-            self._admit()
-            if self._prefilling:
-                # one chunk a pass: running requests keep emitting while a
-                # long prompt streams in
-                self._prefill_step()
-            if not self._by_slot:
-                continue
-            if self.speculative_k:
-                self._speculative_step()
-                continue
-            t_step = time.perf_counter()
-            self.state, logits = self._decode_step()
-            if self._guided_fsm:
-                logits = logits + self._guided_bias(logits.shape)
-            toks = decoding.sample_per_row(logits, self._gen, self._temps,
-                                           self._topks)
-            decoding.commit_tokens(self.state, toks)
-            toks_host = toks.cpu().numpy()
-            self.decode_steps += 1
-            self.decode_slot_steps += len(self._by_slot)
-            self.decode_seconds += time.perf_counter() - t_step
-            for slot, req in list(self._by_slot.items()):
-                self._emit(req, int(toks_host[slot]))
+        with use_mesh(self.mesh):
+            while self._pass():
+                pass
+
+    def _pass(self) -> bool:
+        """One scheduler pass; False when the engine stops."""
+        if self._idle():  # local state: it only paces the pass
+            self._work.wait(timeout=0.1)
+            self._work.clear()
+        if not self._sync_pass():
+            return False
+        # aborted and expired rows are back in the pool before this pass
+        # admits or steps anything
+        self._apply_aborts(self._now)
+        self._expire_deadlines(self._now)
+        self._admit()
+        if self._prefilling:
+            # one chunk a pass: running requests keep emitting while a long
+            # prompt streams in
+            self._prefill_step()
+        if not self._by_slot:
+            return True
+        if self.speculative_k:
+            self._speculative_step()
+            return True
+        t_step = time.perf_counter()
+        self.state, logits = self._decode_step()
+        if self._guided_fsm:
+            logits = logits + self._guided_bias(logits.shape)
+        toks = self._agree(decoding.sample_per_row(
+            logits, self._gen, self._temps, self._topks))
+        decoding.commit_tokens(self.state, toks)
+        toks_host = toks.cpu().numpy()
+        self.decode_steps += 1
+        self.decode_slot_steps += len(self._by_slot)
+        self.decode_seconds += time.perf_counter() - t_step
+        for slot, req in list(self._by_slot.items()):
+            self._emit(req, int(toks_host[slot]))
+        return True
 
     # ---------------------------------------------------------------- stats
 

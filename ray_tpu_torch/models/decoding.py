@@ -24,6 +24,12 @@ is the all-zero null adapter, so such a row computes base + 0 exactly).
 Sampling takes an explicit ``torch.Generator`` on the logits' device where
 the JAX code takes a PRNG key; the two give different random streams, so
 only greedy decoding can match the JAX package token for token.
+
+Tensor parallelism: every step takes its head counts from the weights
+(``transformer.local_heads``), so a rank holding a slice of the heads,
+with a cache (or pool) of its own kv heads as a contiguous tensor, runs
+the same functions; the blocks sum their partial outputs over tp
+(models/transformer.py), so every rank computes the full logits.
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import transformer as tr
 from ray_tpu_torch.models.transformer import (
     TransformerConfig, _attn_out, _dense_mlp, _moe_mlp, _norm, _proj_in,
-    lm_logits, rope_tables, unstack_layers)
+    embed_tokens, lm_logits, local_heads, rope_tables, unstack_layers)
 
 _NEG_INF = -1e30
 
@@ -130,11 +136,11 @@ def prefill(params, tokens, length: int, cfg: TransformerConfig, *,
     """
     dt = cfg.dtype
     B, T = tokens.shape
-    x = params["embed"].to(dt)[tokens]
+    x = embed_tokens(params, tokens, cfg)
     if cfg.pos == "learned":
         x = x + params["pos_embed"][:T].to(dt)
     cos, sin = rope_tables(cfg, x.device)
-    L, Hkv, Dh = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+    L, Hkv, Dh = cfg.n_layers, local_heads(params)[1], cfg.head_dim
     kv_k = torch.empty((L, T, Hkv, Dh), dtype=dt, device=x.device)
     kv_v = torch.empty_like(kv_k)
     loras = [None] * L if lora_bank is None else _lora_layers(lora_bank)
@@ -173,7 +179,7 @@ def insert_sequence(state, slot: int, kv, length: int, first_token,
 
 def _embed_step(params, state, cfg):
     dt = cfg.dtype
-    x = params["embed"].to(dt)[state["last_token"].long()[:, None]]
+    x = embed_tokens(params, state["last_token"].long()[:, None], cfg)
     if cfg.pos == "learned":
         x = x + params["pos_embed"].to(dt)[state["length"].long()][:, None]
     return x
@@ -211,7 +217,8 @@ def decode_step(params, state, cfg: TransformerConfig, lora_bank=None,
     rows = torch.arange(B, device=pos.device)
     x = _embed_step(params, state, cfg)
     cos, sin = rope_tables(cfg, x.device)
-    G = cfg.n_heads // cfg.kv_heads
+    H, Hkv = local_heads(params)
+    G = H // Hkv
     mask = (torch.arange(S, device=pos.device)[None, :]
             <= pos[:, None])[:, None]                          # [B, 1, S]
     loras = [None] * L if lora_bank is None else _lora_layers(lora_bank)
@@ -226,10 +233,10 @@ def decode_step(params, state, cfg: TransformerConfig, lora_bank=None,
         # this step's K/V at each row's position (inactive rows: 0)
         kc.index_put_((rows, pos), k[:, 0].to(kc.dtype))
         vc.index_put_((rows, pos), v[:, 0].to(vc.dtype))
-        qh = q.reshape(B, 1, cfg.kv_heads, G, cfg.head_dim)
+        qh = q.reshape(B, 1, Hkv, G, cfg.head_dim)
         out = _cache_attention(qh, kc, vc, mask, dt, cfg.head_dim)
-        x = x + _attn_out(out.reshape(B, 1, cfg.n_heads, cfg.head_dim),
-                          lp["attn"], cfg)
+        x = x + _attn_out(out.reshape(B, 1, H, cfg.head_dim), lp["attn"],
+                          cfg)
         x = x + _mlp_block(_norm(x, lp["norm2"], cfg), lp, cfg)
     return _finish_step(params, state, x, cfg)
 
@@ -257,11 +264,12 @@ def verify_step(params, state, draft, cfg: TransformerConfig, K: int):
     pos = (state["length"].long()[:, None]
            + torch.arange(K, device=dev)[None, :])             # [B, K]
     look = pos.clamp(max=cfg.max_seq_len - 1)
-    x = params["embed"].to(dt)[tokens.long()]
+    x = embed_tokens(params, tokens.long(), cfg)
     if cfg.pos == "learned":
         x = x + params["pos_embed"].to(dt)[look]
     cos, sin = rope_tables(cfg, x.device)
-    G = cfg.n_heads // cfg.kv_heads
+    H, Hkv = local_heads(params)
+    G = H // Hkv
     # the in-range writes: one host sync a step, not one a layer
     sel = (pos < S).flatten().nonzero()[:, 0]
     rows_w = sel // K
@@ -277,10 +285,10 @@ def verify_step(params, state, draft, cfg: TransformerConfig, K: int):
                       k.reshape(B * K, *k.shape[2:])[sel].to(kc.dtype))
         vc.index_put_((rows_w, pos_w),
                       v.reshape(B * K, *v.shape[2:])[sel].to(vc.dtype))
-        qh = q.reshape(B, K, cfg.kv_heads, G, cfg.head_dim)
+        qh = q.reshape(B, K, Hkv, G, cfg.head_dim)
         out = _cache_attention(qh, kc, vc, mask, dt, cfg.head_dim)
-        x = x + _attn_out(out.reshape(B, K, cfg.n_heads, cfg.head_dim),
-                          lp["attn"], cfg)
+        x = x + _attn_out(out.reshape(B, K, H, cfg.head_dim), lp["attn"],
+                          cfg)
         x = x + _mlp_block(_norm(x, lp["norm2"], cfg), lp, cfg)
     x = _norm(x, params["final_norm"], cfg)
     return state, lm_logits(x, params, cfg).float()

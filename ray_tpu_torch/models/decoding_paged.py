@@ -31,8 +31,8 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.decoding import (
     _cache_attention, _embed_step, _finish_step, _mlp_block, release_slot)
 from ray_tpu_torch.models.transformer import (
-    TransformerConfig, _attn_out, _attn_qkv, _norm, lm_logits, rope_tables,
-    unstack_layers)
+    TransformerConfig, _attn_out, _attn_qkv, _norm, embed_tokens, lm_logits,
+    local_heads, rope_tables, unstack_layers)
 
 
 def init_paged_state(cfg: TransformerConfig, max_slots: int, max_len: int,
@@ -135,7 +135,8 @@ def decode_step_paged_ragged(params, state, cfg: TransformerConfig,
     tbl = state["block"][:, :pages_bound]
     x = _embed_step(params, state, cfg)
     cos, sin = rope_tables(cfg, x.device)
-    G = cfg.n_heads // cfg.kv_heads
+    H, Hkv = local_heads(params)
+    G = H // Hkv
     positions = pos.long()[:, None]
     for i, lp in enumerate(unstack_layers(params)):
         kp, vp = state["kp"][i], state["vp"][i]  # views into the pool
@@ -145,10 +146,10 @@ def decode_step_paged_ragged(params, state, cfg: TransformerConfig,
             k = ops.apply_rope(k, cos, sin, positions=positions)
         kp.index_put_((page_ids, offsets), k[:, 0].to(kp.dtype))
         vp.index_put_((page_ids, offsets), v[:, 0].to(vp.dtype))
-        qh = q[:, 0].reshape(B, cfg.kv_heads, G, cfg.head_dim)
+        qh = q[:, 0].reshape(B, Hkv, G, cfg.head_dim)
         out = ops.ragged_decode_attention(
             qh, kp, vp, tbl, pos, scale=cfg.head_dim ** -0.5, impl=impl)
-        out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim).to(dt)
+        out = out.reshape(B, 1, H, cfg.head_dim).to(dt)
         x = x + _attn_out(out, lp["attn"], cfg)
         x = x + _mlp_block(_norm(x, lp["norm2"], cfg), lp, cfg)
     return _finish_step(params, state, x, cfg)
@@ -166,7 +167,8 @@ def decode_step_paged(params, state, cfg: TransformerConfig):
     pos, page_ids, offsets = _step_inputs(state, cfg)
     x = _embed_step(params, state, cfg)
     cos, sin = rope_tables(cfg, x.device)
-    G = cfg.n_heads // cfg.kv_heads
+    H, Hkv = local_heads(params)
+    G = H // Hkv
     positions = pos.long()[:, None]
     block = state["block"].long()
     mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]
@@ -178,16 +180,16 @@ def decode_step_paged(params, state, cfg: TransformerConfig):
             k = ops.apply_rope(k, cos, sin, positions=positions)
         kp.index_put_((page_ids, offsets), k[:, 0].to(kp.dtype))
         vp.index_put_((page_ids, offsets), v[:, 0].to(vp.dtype))
-        k_cache = kp[block].reshape(B, S, cfg.kv_heads, cfg.head_dim)
-        v_cache = vp[block].reshape(B, S, cfg.kv_heads, cfg.head_dim)
-        qh = q[:, 0].reshape(B, cfg.kv_heads, G, cfg.head_dim)
+        k_cache = kp[block].reshape(B, S, Hkv, cfg.head_dim)
+        v_cache = vp[block].reshape(B, S, Hkv, cfg.head_dim)
+        qh = q[:, 0].reshape(B, Hkv, G, cfg.head_dim)
         scores = torch.einsum("bkgd,bskd->bkgs", qh,
                               k_cache.to(dt)) / (cfg.head_dim ** 0.5)
         scores = torch.where(mask[:, None, None, :], scores.float(),
                              torch.full_like(scores, -1e30, dtype=torch.float32))
         w = torch.softmax(scores, dim=-1).to(dt)
         out = torch.einsum("bkgs,bskd->bkgd", w, v_cache.to(dt))
-        out = out.reshape(B, 1, cfg.n_heads, cfg.head_dim)
+        out = out.reshape(B, 1, H, cfg.head_dim)
         x = x + _attn_out(out, lp["attn"], cfg)
         x = x + _mlp_block(_norm(x, lp["norm2"], cfg), lp, cfg)
     return _finish_step(params, state, x, cfg)
@@ -232,7 +234,7 @@ def prefill_with_prefix(params, tokens, prefix_k, prefix_v, prefix_len: int,
     # positions past the tables clamp, as the JAX gathers do
     pos = (int(prefix_len) + torch.arange(Ts, device=dev)).clamp(
         max=cfg.max_seq_len - 1)
-    x = params["embed"].to(dt)[tokens]
+    x = embed_tokens(params, tokens, cfg)
     if cfg.pos == "learned":
         x = x + params["pos_embed"].to(dt)[pos][None]
     cos, sin = rope_tables(cfg, x.device)
@@ -240,8 +242,9 @@ def prefill_with_prefix(params, tokens, prefix_k, prefix_v, prefix_len: int,
     ar_s = torch.arange(Ts, device=dev)
     mask = torch.cat([(ar_p[None, :] < int(prefix_len)).expand(Ts, Tp),
                       ar_s[:, None] >= ar_s[None, :]], dim=1)[None]
-    G = cfg.n_heads // cfg.kv_heads
-    L, Hkv, Dh = cfg.n_layers, cfg.kv_heads, cfg.head_dim
+    H, Hkv = local_heads(params)
+    G = H // Hkv
+    L, Dh = cfg.n_layers, cfg.head_dim
     kv_k = torch.empty((L, Ts, Hkv, Dh), dtype=dt, device=dev)
     kv_v = torch.empty_like(kv_k)
     for i, lp in enumerate(unstack_layers(params)):
@@ -253,8 +256,7 @@ def prefill_with_prefix(params, tokens, prefix_k, prefix_v, prefix_len: int,
         v_all = torch.cat([prefix_v[i][None].to(dt), v], dim=1)
         qh = q.reshape(B, Ts, Hkv, G, Dh)
         out = _cache_attention(qh, k_all, v_all, mask, dt, Dh)
-        x = x + _attn_out(out.reshape(B, Ts, cfg.n_heads, Dh), lp["attn"],
-                          cfg)
+        x = x + _attn_out(out.reshape(B, Ts, H, Dh), lp["attn"], cfg)
         x = x + _mlp_block(_norm(x, lp["norm2"], cfg), lp, cfg)
         kv_k[i] = k[0]
         kv_v[i] = v[0]

@@ -17,6 +17,18 @@ MoE aux loss. Training: ``loss_fn`` is the next-token loss plus
 ``aux_coef * aux / n_layers`` for MoE; with ``cfg.remat`` the layers run
 under non-reentrant ``torch.utils.checkpoint`` as ``remat_policy`` says,
 the counterpart of the JAX package's ``jax.checkpoint`` policies.
+
+Multi-device (parallel/): ``logical_axes`` names each leaf's dimensions
+for the rule tables. The blocks are tensor- and expert-parallel by the
+shapes they are given: a rank holding a contiguous slice of the heads
+(with tp | n_kv_heads, q head h keeps its kv head h // G on the same
+rank), of the mlp hidden dim, of the experts or of the vocabulary computes
+its partial and sums it over the axis the rules put that dimension on
+(``allreduce`` after the row-parallel ``wo`` projections and the expert
+outputs, a masked lookup for a vocab-sharded embedding), under the mesh
+made current by ``parallel.use_mesh``. With full shapes the blocks are the
+unsharded code, and need no mesh. ``sp_axis`` runs ring attention over a
+sequence-sharded axis with positions offset by the shard's start.
 """
 
 from __future__ import annotations
@@ -31,6 +43,15 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from ray_tpu_torch import ops
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import (DEFAULT_RULES, checkpoint_context,
+                                         current_batch_axes)
+
+# the mesh axes the rule tables put the split dimensions on
+_HEADS_AXIS = DEFAULT_RULES.params["heads"]
+_MLP_AXIS = DEFAULT_RULES.params["mlp"]
+_VOCAB_AXIS = DEFAULT_RULES.params["vocab"]
+_EXPERT_AXIS = DEFAULT_RULES.params["expert"]
 
 REMAT_POLICIES = ("nothing", "dots", "pairs")
 
@@ -157,6 +178,41 @@ def draw(generator: torch.Generator, shapes: dict, std_of, device,
     return build(shapes, ())
 
 
+def logical_axes(cfg: TransformerConfig) -> dict:
+    """Same tree as init(), leaves = tuples of logical dim names (the JAX
+    package's); stacked layer params get a leading 'layers' dim."""
+    norm = {"w": ("embed",)} if cfg.norm == "rms" else \
+        {"w": ("embed",), "b": ("embed",)}
+    attn = {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
+    if cfg.bias:
+        attn.update(bq=("heads", "head_dim"), bk=("kv_heads", "head_dim"),
+                    bv=("kv_heads", "head_dim"), bo=("embed",))
+    if cfg.moe:
+        mlp = {"router": ("embed", None), "gate": ("expert", "embed", "mlp"),
+               "up": ("expert", "embed", "mlp"),
+               "down": ("expert", "mlp", "embed")}
+    elif cfg.act == "swiglu":
+        mlp = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"),
+               "wo": ("mlp", "embed")}
+    else:
+        mlp = {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+        if cfg.bias:
+            mlp.update(bi=("mlp",), bo=("embed",))
+    layer = {"norm1": norm, "attn": attn, "norm2": dict(norm), "mlp": mlp}
+    stacked = {k: {n: ("layers",) + t for n, t in v.items()}
+               for k, v in layer.items()}
+    out = {"embed": ("vocab", "embed"), "layers": stacked,
+           "final_norm": dict(norm)}
+    if cfg.pos == "learned":
+        out["pos_embed"] = (None, "embed")
+    if not cfg.tie_embeddings:
+        out["lm_head"] = ("embed", "vocab")
+    return out
+
+
 # ----------------------------------------------------------------- apply
 
 def _norm(x, p, cfg):
@@ -190,47 +246,76 @@ def _attn_qkv(x, p, cfg):
 
 
 def _attn_out(out, p, cfg):
-    """Attention output projection [B, T, H, Dh] → [B, T, E]."""
+    """Attention output projection [B, T, H, Dh] → [B, T, E]; a rank with a
+    slice of the heads sums its partial over the heads' axis before the
+    (replicated) bias."""
     out = _proj_out(out, p["wo"], cfg.dtype)
+    if p["wo"].shape[0] < cfg.n_heads:
+        out = collectives.allreduce(out, _HEADS_AXIS)
     if cfg.bias:
         out = out + p["bo"].to(cfg.dtype)
     return out
 
 
-def _attn_block(x, p, cfg, cos, sin, attn_impl):
+def _attn_block(x, p, cfg, cos, sin, attn_impl, positions=None,
+                sp_axis=None):
     q, k, v = _attn_qkv(x, p, cfg)
     if cfg.pos == "rope":
-        q = ops.apply_rope(q, cos, sin)
-        k = ops.apply_rope(k, cos, sin)
-    return _attn_out(ops.attention(q, k, v, causal=True, impl=attn_impl), p,
-                     cfg)
+        q = ops.apply_rope(q, cos, sin, positions=positions)
+        k = ops.apply_rope(k, cos, sin, positions=positions)
+    return _attn_out(ops.attention(q, k, v, causal=True, sp_axis=sp_axis,
+                                   impl=attn_impl), p, cfg)
 
 
 def _dense_mlp(x, p, cfg):
     dt = cfg.dtype
     if cfg.act == "swiglu":
         h = ops.swiglu(x @ p["wi_gate"].to(dt), x @ p["wi_up"].to(dt))
-        return h @ p["wo"].to(dt)
-    h = x @ p["wi"].to(dt)
-    if cfg.bias:
-        h = h + p["bi"].to(dt)
-    h = ops.gelu(h)
+    else:
+        h = x @ p["wi"].to(dt)
+        if cfg.bias:
+            h = h + p["bi"].to(dt)
+        h = ops.gelu(h)
     out = h @ p["wo"].to(dt)
-    if cfg.bias:
+    if p["wo"].shape[0] < cfg.d_ff:  # a slice of the hidden dim: partial
+        out = collectives.allreduce(out, _MLP_AXIS)
+    if cfg.bias and cfg.act != "swiglu":  # the swiglu mlp has no biases
         out = out + p["bo"].to(dt)
     return out
 
 
 def _moe_mlp(x, p, cfg):
     """The MoE mlp on [B, T, E] → (delta [B, T, E], aux loss f32 scalar).
-    Routing spans all B*T rows: they share the experts' capacity."""
+    Routing spans all B*T rows: they share the experts' capacity. A rank
+    holding E/ep of the experts (and/or a slice of their hidden dim) runs
+    its experts on the routing's columns for them and sums its partial
+    output over ep (and tp); the tokens are not split over ep. When the
+    current mesh splits the batch (the meshed train step), the router
+    logits are gathered over those axes first, so that capacity is shared
+    by the global batch as in the JAX package's gspmd program."""
     dt = cfg.dtype
     B, T, E = x.shape
     xf = x.reshape(B * T, E)
     router_logits = (xf @ p["router"].to(dt)).float()
+    batch_axes = current_batch_axes()
+    if batch_axes:
+        router_logits = collectives.allgather(router_logits, batch_axes)
     routing = ops.topk_routing(router_logits, num_experts=cfg.moe.num_experts,
                                k=cfg.moe.top_k,
                                capacity_factor=cfg.moe.capacity_factor)
+    X_loc = p["gate"].shape[0]
+    if batch_axes or X_loc < cfg.moe.num_experts:
+        rows = slice(None)
+        if batch_axes:
+            n = B * T
+            rows = slice(collectives.axis_index(batch_axes) * n,
+                         (collectives.axis_index(batch_axes) + 1) * n)
+        lo = collectives.axis_index(_EXPERT_AXIS) * X_loc \
+            if X_loc < cfg.moe.num_experts else 0
+        routing = ops.RoutingInfo(
+            dispatch=routing.dispatch[rows, lo:lo + X_loc],
+            combine=routing.combine[rows, lo:lo + X_loc],
+            aux_loss=routing.aux_loss)
 
     def expert_fn(pe, xe):  # every expert at once: [X, C, E] batched matmuls
         h = ops.swiglu(torch.bmm(xe, pe["gate"].to(dt)),
@@ -239,6 +324,11 @@ def _moe_mlp(x, p, cfg):
 
     expert_params = {"gate": p["gate"], "up": p["up"], "down": p["down"]}
     y = ops.moe_apply(xf, routing, expert_fn, expert_params)
+    axes = tuple(a for a, split in (
+        (_EXPERT_AXIS, X_loc < cfg.moe.num_experts),
+        (_MLP_AXIS, p["gate"].shape[-1] < cfg.d_ff)) if split)
+    if axes:
+        y = collectives.allreduce(y, axes if len(axes) > 1 else axes[0])
     return y.reshape(B, T, E), routing.aux_loss
 
 
@@ -263,17 +353,49 @@ def rope_tables(cfg: TransformerConfig, device):
                                 theta=cfg.rope_theta, device=device)
 
 
+def embed_tokens(params, tokens, cfg):
+    """params["embed"][tokens] in cfg.dtype. A rank holding a slice of the
+    vocabulary looks up the tokens in its slice, zeroes the rest and sums
+    over the vocab axis (each token's row lives on one rank: exact)."""
+    w = params["embed"].to(cfg.dtype)
+    V_loc = w.shape[0]
+    if V_loc == cfg.vocab_size:
+        return w[tokens]
+    local = tokens - collectives.axis_index(_VOCAB_AXIS) * V_loc
+    mine = (local >= 0) & (local < V_loc)
+    x = w[local.clamp(0, V_loc - 1)]
+    x = torch.where(mine[..., None], x, torch.zeros_like(x))
+    return collectives.allreduce(x, _VOCAB_AXIS)
+
+
 def lm_logits(x, params, cfg):
+    """Logits in cfg.dtype: over the whole vocabulary, or over this rank's
+    vocab slice when the head is vocab-sharded (the losses take the slice:
+    ``vocab_axis``/``logits_spec``)."""
     dt = cfg.dtype
     if cfg.tie_embeddings:
         return x @ params["embed"].to(dt).T
     return x @ params["lm_head"].to(dt)
 
 
-def _block(x, lp, cfg, cos, sin, attn_impl):
+def local_heads(params) -> tuple[int, int]:
+    """(q heads, kv heads) of the attention weights this rank holds: the
+    config's, or a tensor-parallel rank's slice of them."""
+    attn = params["layers"]["attn"]
+    return attn["wq"].shape[-2], attn["wk"].shape[-2]
+
+
+def vocab_axis_of(params, cfg) -> str | None:
+    """The mesh axis the head's vocab dim is split over, or None."""
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    V_loc = head.shape[0] if cfg.tie_embeddings else head.shape[1]
+    return _VOCAB_AXIS if V_loc < cfg.vocab_size else None
+
+
+def _block(x, lp, cfg, cos, sin, attn_impl, positions=None, sp_axis=None):
     """One layer: (x, its MoE aux loss, or None for a dense mlp)."""
     x = x + _attn_block(_norm(x, lp["norm1"], cfg), lp["attn"], cfg, cos, sin,
-                        attn_impl)
+                        attn_impl, positions, sp_axis)
     normed = _norm(x, lp["norm2"], cfg)
     if cfg.moe:
         delta, aux = _moe_mlp(normed, lp["mlp"], cfg)
@@ -297,16 +419,19 @@ def _layer_fn(cfg: TransformerConfig, i: int):
         return _block
     if cfg.remat_policy == "pairs" and i % 2:
         return _block  # the second layer of each pair keeps its activations
+    # the recompute runs under the forward's mesh (checkpoint_context)
+    inner = None
     if cfg.remat_policy == "dots":
-        ctx = functools.partial(create_selective_checkpoint_contexts,
-                                _save_matmuls)
-        return functools.partial(checkpoint, _block, use_reentrant=False,
-                                 context_fn=ctx)
-    return functools.partial(checkpoint, _block, use_reentrant=False)
+        inner = functools.partial(create_selective_checkpoint_contexts,
+                                  _save_matmuls)
+    return functools.partial(checkpoint, _block, use_reentrant=False,
+                             context_fn=functools.partial(checkpoint_context,
+                                                          inner))
 
 
 def forward(params, tokens, cfg: TransformerConfig, *,
-            attn_impl: str | None = None, return_hidden: bool = False):
+            sp_axis: str | None = None, attn_impl: str | None = None,
+            return_hidden: bool = False):
     """tokens [B, T] int → (logits [B, T, V] in cfg.dtype, aux_loss); the
     aux loss (f32) is the sum of the MoE layers' load-balancing losses, 0
     for the dense stack. With return_hidden=True, returns the final-normed
@@ -324,13 +449,18 @@ def forward(params, tokens, cfg: TransformerConfig, *,
             "MoE) stack; falling back silently would misattribute benchmark "
             "results to selective remat")
     dt = cfg.dtype
-    x = params["embed"].to(dt)[tokens]
+    x = embed_tokens(params, tokens, cfg)
+    T = tokens.shape[1]
+    start = 0 if sp_axis is None else collectives.axis_index(sp_axis) * T
+    positions = None if sp_axis is None else \
+        start + torch.arange(T, device=x.device)
     if cfg.pos == "learned":
-        x = x + params["pos_embed"][:tokens.shape[1]].to(dt)
+        x = x + params["pos_embed"][start:start + T].to(dt)
     cos, sin = rope_tables(cfg, x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(unstack_layers(params)):
-        x, layer_aux = _layer_fn(cfg, i)(x, lp, cfg, cos, sin, attn_impl)
+        x, layer_aux = _layer_fn(cfg, i)(x, lp, cfg, cos, sin, attn_impl,
+                                         positions, sp_axis)
         if layer_aux is not None:
             aux = aux + layer_aux
     x = _norm(x, params["final_norm"], cfg)
@@ -340,29 +470,42 @@ def forward(params, tokens, cfg: TransformerConfig, *,
 
 
 def loss_fn(params, tokens, cfg: TransformerConfig, *,
-            attn_impl: str | None = None, fused_ce: bool | None = None,
+            sp_axis: str | None = None, attn_impl: str | None = None,
+            fused_ce: bool | None = None, logits_spec=None,
             ce_chunk: int | None = None):
     """Next-token LM loss on tokens [B, T + 1] (labels ``tokens[:, 1:]``,
     -100 ignored), the JAX package's rules: fused_ce (default: on for
     vocab >= 8192, and off with tied embeddings, which have no lm_head)
     streams the head matmul into a chunked cross-entropy so the [B, T, V]
     logits never exist at once. A MoE stack adds
-    ``cfg.moe.aux_coef * aux / cfg.n_layers``."""
+    ``cfg.moe.aux_coef * aux / cfg.n_layers``. `logits_spec` (fused path
+    only, as in the JAX package) names the vocab axis of the per-chunk
+    logits; a vocab-sharded head gets P(None, "tp") without it, and the
+    unfused loss takes its vocab slice the same way."""
     if fused_ce is None:
         fused_ce = cfg.vocab_size >= 8192
     fused_ce = fused_ce and not cfg.tie_embeddings
+    if logits_spec is not None and not fused_ce:
+        raise ValueError(
+            "logits_spec requires the fused-CE path (untied embeddings and "
+            "fused_ce enabled)")
+    vocab_axis = vocab_axis_of(params, cfg)
     labels = tokens[:, 1:]
     if fused_ce:
-        hidden, aux = forward(params, tokens[:, :-1], cfg,
+        hidden, aux = forward(params, tokens[:, :-1], cfg, sp_axis=sp_axis,
                               attn_impl=attn_impl, return_hidden=True)
         B, T, E = hidden.shape
+        if logits_spec is None and vocab_axis is not None:
+            logits_spec = (None, vocab_axis)
         loss, _ = ops.fused_head_cross_entropy(
             hidden.reshape(B * T, E), params["lm_head"],
-            labels.reshape(B * T), chunk=ce_chunk or 2048)
+            labels.reshape(B * T), chunk=ce_chunk or 2048,
+            logits_spec=logits_spec)
     else:
-        logits, aux = forward(params, tokens[:, :-1], cfg,
+        logits, aux = forward(params, tokens[:, :-1], cfg, sp_axis=sp_axis,
                               attn_impl=attn_impl)
-        loss, _ = ops.softmax_cross_entropy(logits, labels)
+        loss, _ = ops.softmax_cross_entropy(logits, labels,
+                                            vocab_axis=vocab_axis)
     if cfg.moe:
         loss = loss + cfg.moe.aux_coef * aux / cfg.n_layers
     return loss

@@ -5,8 +5,10 @@ over 16×16 patches and a cls token; the head reads the cls token. The param
 tree has the JAX package's names and layouts, layers stacked on dim 0.
 Attention goes through ``ops.attention(causal=False)``: at 224² and patch
 16, T = 197 is no multiple of 64, so the dense reference runs on the card
-too (the flash kernels do not fit it). ``logical_axes`` (mesh sharding) is
-not ported yet: ROADMAP.md Queue 1 item 11.
+too (the flash kernels do not fit it). ``logical_axes`` names each leaf's
+dimensions for the mesh rule tables (parallel/mesh.py); a block given a
+slice of the heads or of the mlp hidden dim sums its partial output over
+the tp axis before the replicated bias, as the transformer's blocks do.
 """
 
 from __future__ import annotations
@@ -18,8 +20,10 @@ import torch
 
 from ray_tpu_torch import ops
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.transformer import (_proj_in, _proj_out, draw,
+from ray_tpu_torch.models.transformer import (_HEADS_AXIS, _MLP_AXIS,
+                                              _proj_in, _proj_out, draw,
                                               unstack_layers)
+from ray_tpu_torch.parallel import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +101,32 @@ def init(generator: torch.Generator, cfg: ViTConfig, device=None,
                 resolve_device(device), dtype or cfg.param_dtype)
 
 
+def logical_axes(cfg: ViTConfig) -> dict:
+    """Same tree as init(), leaves = tuples of logical dim names (the JAX
+    package's); stacked layer params get a leading 'layers' dim."""
+    norm = {"w": ("embed",), "b": ("embed",)}
+    layer = {
+        "norm1": norm,
+        "attn": {"wq": ("embed", "heads", "head_dim"),
+                 "wk": ("embed", "heads", "head_dim"),
+                 "wv": ("embed", "heads", "head_dim"),
+                 "wo": ("heads", "head_dim", "embed")},
+        "norm2": dict(norm),
+        "mlp": {"wi": ("embed", "mlp"), "bi": ("mlp",),
+                "wo": ("mlp", "embed"), "bo": ("embed",)},
+    }
+    return {
+        "patch_embed": (None, "embed"),
+        "patch_bias": ("embed",),
+        "cls_token": (None, None, "embed"),
+        "pos_embed": (None, "embed"),
+        "layers": {k: {n: ("layers",) + t for n, t in v.items()}
+                   for k, v in layer.items()},
+        "final_norm": dict(norm),
+        "head": ("embed", None),
+    }
+
+
 def patchify(images, patch_size: int):
     """[B, H, W, 3] → [B, n_patches, 3*p*p]."""
     B, H, W, C = images.shape
@@ -113,10 +143,16 @@ def _block(h, p, cfg):
     k = _proj_in(hn, p["attn"]["wk"], dt)
     v = _proj_in(hn, p["attn"]["wv"], dt)
     a = ops.attention(q, k, v, causal=False)
-    h = h + _proj_out(a, p["attn"]["wo"], dt)
+    o = _proj_out(a, p["attn"]["wo"], dt)
+    if p["attn"]["wo"].shape[0] < cfg.n_heads:
+        o = collectives.allreduce(o, _HEADS_AXIS)
+    h = h + o
     hn = ops.layer_norm(h, p["norm2"]["w"], p["norm2"]["b"])
     m = ops.gelu(hn @ p["mlp"]["wi"].to(dt) + p["mlp"]["bi"].to(dt))
-    return h + (m @ p["mlp"]["wo"].to(dt) + p["mlp"]["bo"].to(dt))
+    o = m @ p["mlp"]["wo"].to(dt)
+    if p["mlp"]["wo"].shape[0] < cfg.d_ff:
+        o = collectives.allreduce(o, _MLP_AXIS)
+    return h + (o + p["mlp"]["bo"].to(dt))
 
 
 def forward(params, images, cfg: ViTConfig):

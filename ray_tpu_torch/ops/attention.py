@@ -11,16 +11,16 @@ in place (no repeat_kv copy). Every other call, CPU tensors included, takes
 the dense reference, as the JAX package's auto path takes its reference
 for shapes its kernel does not tile. The engine's prompt buckets and the
 training sequences are multiples of 64, so serving and training launch the
-kernels; ViT's T = 197 takes the reference.
+kernels; ViT's T = 197 takes the reference. With ``sp_axis`` the call is
+ring attention over that mesh axis (parallel/ring_attention.py, plain
+PyTorch as the JAX package's ring is jnp), kv heads repeated first.
 """
 
 from __future__ import annotations
 
-import torch
-
 from ray_tpu_torch.ops.flash_attention import FlashAttention, kernel_fits
-
-_NEG_INF = -1e30
+from ray_tpu_torch.parallel.ring_attention import (reference_attention,
+                                                   ring_attention)
 
 
 def repeat_kv(k, *, n_rep: int):
@@ -30,34 +30,24 @@ def repeat_kv(k, *, n_rep: int):
     return k.repeat_interleave(n_rep, dim=2)
 
 
-def reference_attention(q, k, v, *, causal: bool = True,
-                        scale: float | None = None):
-    """Unsharded reference: q, k, v [B, T, H, D] with equal head counts,
-    computed in f32 with a dense score tensor."""
-    B, T, H, D = q.shape
-    if scale is None:
-        scale = D ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    if causal:
-        mask = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, _NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
-    return o.to(q.dtype)
-
-
 def attention(q, k, v, *, causal: bool = True, scale: float | None = None,
-              impl: str | None = None):
+              sp_axis: str | None = None, impl: str | None = None):
     """q: [B, T, H, D]; k, v: [B, T, Hkv, D]. Returns [B, T, H, D].
 
     impl: None → the flash kernels where ``kernel_fits`` holds, else the
     reference; "flash" → the flash autograd function (its plain versions on
     the CPU; on CUDA it raises for inputs the kernels do not take);
-    "reference" → the dense reference on any device.
+    "reference" → the dense reference on any device. sp_axis: when set,
+    ring attention over that mesh axis (inputs sequence-sharded, under a
+    mesh with that axis); `impl` is then not consulted.
     """
     H, Hkv = q.shape[2], k.shape[2]
     if H % Hkv != 0:
         raise ValueError(f"q heads {H} not a multiple of kv heads {Hkv}")
+    if sp_axis is not None:
+        return ring_attention(q, repeat_kv(k, n_rep=H // Hkv),
+                              repeat_kv(v, n_rep=H // Hkv), axis_name=sp_axis,
+                              causal=causal, scale=scale)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     # heads-major views, no copies: the kernels take any strides with a

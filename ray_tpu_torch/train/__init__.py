@@ -1,19 +1,24 @@
-"""Training on one device: optimizers and the train step.
+"""Training: optimizers and the train steps, on one device or over a mesh.
 
-Counterpart of the single-device part of ray_tpu/train (``optim.py`` and
-``spmd.make_train_step``); the model's loss is
+Counterpart of ray_tpu/train's ``optim.py``, ``spmd.py`` and the rules and
+device planes of ``zero.py``; the model's loss is
 ``ray_tpu_torch.models.transformer.loss_fn``.
 """
 
+from ray_tpu_torch.train import zero
 from ray_tpu_torch.train.optim import (AdamWInt8, adamw, adamw_int8,
                                        optimizer_state_bytes, param_leaves)
-from ray_tpu_torch.train.spmd import make_train_step
+from ray_tpu_torch.train.spmd import (init_sharded, make_sp_pp_train_step,
+                                      make_train_step)
 
 __all__ = [
     "AdamWInt8",
     "adamw",
     "adamw_int8",
+    "init_sharded",
+    "make_sp_pp_train_step",
     "make_train_step",
     "optimizer_state_bytes",
     "param_leaves",
+    "zero",
 ]

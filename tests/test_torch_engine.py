@@ -138,8 +138,11 @@ def test_engine_expired_deadline_refused_at_admission(tiny):
 
 
 def test_engine_unported_knobs_raise(tiny):
+    """mesh= takes a DeviceMesh over an initialised process group; the
+    tensor-parallel engine's tests over gloo ranks are in
+    test_torch_engine_tp.py."""
     _, _, tcfg, tparams = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         LLMEngine(tcfg, tparams, device="cpu", **{**ENGINE, "mesh": object()})
 
 
@@ -228,6 +231,8 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.benchmarks.train_step\n"
         "import ray_tpu_torch.ops.moe, ray_tpu_torch.models.vit\n"
         "import ray_tpu_torch.models.gpt2, ray_tpu_torch.models.mixtral\n"
+        "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.dryrun\n"
+        "import ray_tpu_torch.train.zero\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

@@ -240,7 +240,14 @@ def test_cross_entropy_matches_jax(fused, z_loss):
 
 
 def test_fused_cross_entropy_logits_spec_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    """A logits_spec that splits the vocab needs a mesh over an initialised
+    process group; the parity test over gloo ranks is in
+    test_torch_spmd.py."""
+    with pytest.raises(RuntimeError, match="needs a mesh"):
+        tops.fused_head_cross_entropy(torch.zeros(4, 2), torch.zeros(2, 3),
+                                      torch.zeros(4, dtype=torch.long),
+                                      logits_spec=(None, "tp"))
+    with pytest.raises(ValueError, match="rows are this rank's own"):
         tops.fused_head_cross_entropy(torch.zeros(4, 2), torch.zeros(2, 3),
                                       torch.zeros(4, dtype=torch.long),
                                       logits_spec=("tp",))

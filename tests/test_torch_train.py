@@ -224,14 +224,22 @@ def test_adamw_int8_matches_jax():
 
 
 def test_single_device_only_and_measure_needs_the_card():
-    class Mesh:
-        def size(self):
-            return 4
+    """A meshed step needs a DeviceMesh over an initialised process group
+    (the meshed steps' parity tests over gloo ranks are in
+    test_torch_spmd.py)."""
+    class Mesh:  # a DeviceMesh's surface, with no process group behind it
+        mesh_dim_names = ("dp",)
+
+        def get_group(self, name):
+            raise AssertionError("no group to get")
 
     _, _, tcfg, tparams = _pair()
     opt = ttrain.adamw(tparams, 1e-3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        ttrain.make_train_step(lambda p, b: p, opt, mesh=Mesh())
+    with pytest.raises(RuntimeError, match="not initialised"):
+        ttrain.make_train_step(lambda p, b: p, opt, mesh=Mesh(),
+                               logical_axes={"a": ("embed",)})
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        ttrain.make_train_step(lambda p, b: p, opt, mesh=object())
     with pytest.raises(ValueError, match="CUDA"):
         tbench.measure(tcfg, batch=1, seq=8, device="cpu")
 
