@@ -18,7 +18,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
      kernels work on 128-row tiles while callers need only T % 64 == 0:
      T in {64, 192, 2048} x head_dim {64, 128} x causal/full, batch 2;
    - flash forward on [1,32,T,128] bf16 (GQA, 8 kv heads) for T in {64,
-     1024, 2048} causal plus a non-causal case, and on [4,32,2048,64]
+     1024, 2048} causal plus a non-causal case, on [2,32,1024,128] causal
+     (a coalesced prefill of two prompts, phase 12b) and on [4,32,2048,64]
      (training); bf16 O within atol = rtol = 2e-2 of the plain version
      (f32 math rounded to bf16), lse within 1e-3;
    - ragged paged decode with B=8, Hkv=8, G=4, Dh=128, P=64 over a 257-page
@@ -136,6 +137,32 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       card: the tiny gspmd Mixtral step (dp x ep x tp), the pp x sp step
       (GPipe, ring attention) and the tp = 4 decode, every program on CUDA
       tensors (gloo takes every collective ``parallel/`` calls on them).
+
+12. PD disaggregation below Serve, on phase 10's Llama-3-8B (built once;
+   phase 12 runs right after phase 10, before phase 11 needs the memory).
+   It prints /dev/shm's size first: a transfer channel holds
+   ``prefetch_depth`` pages of 8 MiB (16 MiB); with less free than one
+   channel the phase fails, with less than eight it runs the transfers in
+   waves that fit.
+   a. Phase 4's 8 prompts: ``decoding.prefill`` at each bucket (the
+      monolithic engine's call), ``PagedKVExporter`` (PDConfig's page 64,
+      prefetch 2), ``BatchedKVPuller`` into ``KVPageStream``s, and
+      ``LLMEngine(**_pd_engine_kwargs(...)).submit_prefilled(kv_stream=)``.
+      The greedy tokens must equal those of a monolithic paged LLMEngine
+      serving the same prompts token for token; the pages the decode
+      engine adopted must equal the exported ones byte for byte (exact
+      integer fingerprints of the pool pages read back at adoption,
+      against the exported pages'); flash = 32 x 8 prefills and none in the
+      decode engine, ragged = 32 x decode steps, no backward kernel; no
+      segment of the port's prefix is left after teardown. Both engines
+      take the two longest prompts first, with 128 new tokens (the rest
+      32): while either is resident every decode step sweeps 32 pages, so
+      each row meets the same ragged split shape in both runs whatever the
+      arrival timing, which bf16 token-exactness needs.
+   b. The 8 prompts from 8 threads into one ``PrefillCoalescer``
+      (max_batch 4, PDConfig's window): each row's logits against the
+      solo prefill of its prompt and an f32 run under phase 3's bounds,
+      flash launches = 32 x the coalescer's batches, jobs = 8.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1186,9 +1213,10 @@ def engine_run(torch, kernels, cfg, params, name: str, options: dict, drive,
             "stats": st, "extra": extra, "outs": outs}
 
 
-def serve_options(torch, kernels, card: str) -> dict:
+def serve_options(torch, kernels, card: str, cfg, params) -> dict:
     """Phase 10: Llama-3-8B at full width and depth (bf16, random weights
-    from a seed, built once), the model checks of ``engine_model_checks``,
+    from a seed, built once by the caller), the model checks of
+    ``engine_model_checks``,
     then one LLMEngine a run on those params (ENGINE_RUNS), each shut down
     before the next. Per run, the launch counts are zeroed just before its
     traffic and read just after, and must be exactly: flash forward =
@@ -1200,12 +1228,7 @@ def serve_options(torch, kernels, card: str) -> dict:
     import numpy as np
 
     from ray_tpu_torch.llm import GuidedFSM, SamplingParams
-    from ray_tpu_torch.models import llama, transformer
 
-    dev = torch.device("cuda")
-    cfg = llama.llama_config("8b")
-    params = transformer.init(torch.Generator(device=dev).manual_seed(SEED),
-                              cfg, dev, dtype=cfg.dtype)
     checks = engine_model_checks(torch, cfg, params)
     torch.cuda.empty_cache()
     print(json.dumps({"card": card, "engine_model_checks": checks}),
@@ -1374,6 +1397,387 @@ def serve_options(torch, kernels, card: str) -> dict:
         if not ok:
             fail(f"engine guided: a {kind} row gave {out}")
     return {name: row["launches"] for name, row in runs.items()}
+
+
+# ----------------------------------------------------------------- phase 12
+
+PD_LONG = 1300          # prompts at least this long sweep 32 pages a step
+PD_LONG_TOKENS = 128    # their new tokens: they outlive the other rows
+PD_WAIT_S = 120.0
+
+
+def page_hash(torch, t, w):
+    """Exact fingerprint of a page's bytes on the card: its int16 words
+    times fixed random int64 weights, summed modulo 2**64 (order-free, so
+    equal bytes give equal values)."""
+    x = t.contiguous().view(torch.int16).flatten().to(torch.int64)
+    return (x * w[:x.numel()]).sum()
+
+
+def wait_for(pred, what: str, timeout_s: float = PD_WAIT_S) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > deadline:
+            fail(f"timed out after {timeout_s} s waiting for {what}")
+        time.sleep(0.002)
+
+
+def plane_stages(torch, kv, page_size: int, depth: int) -> dict:
+    """The transfer plane's stages for one prefilled bucket, one after the
+    other on this thread (no sender, puller or engine thread competing),
+    host clock in ms: device-to-host copy of K and V, slicing the pages
+    contiguous, copying each message into a channel, reading each back
+    with a clone, and copying the pages to the card."""
+    from ray_tpu_torch.experimental.channel.mutable_shm import (
+        create_mutable_channel)
+    from ray_tpu_torch.llm import kv_transfer as kt
+
+    ms = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms[name] = 1e3 * (time.perf_counter() - t0)
+        return out
+
+    k, v = timed("d2h", lambda: (kv["k"].cpu(), kv["v"].cpu()))
+    n = k.shape[1] // page_size
+    kps, vps = timed("slice", lambda: kt._pages(k, v, 0, n, page_size))
+    ch = create_mutable_channel(depth * (k.nbytes + v.nbytes) // n
+                                + kt._WIRE_SLACK)
+    try:
+        ms["channel_write"] = ms["read_clone"] = 0.0
+        pages = []
+        for i in range(0, n, depth):
+            t0 = time.perf_counter()
+            ch.write_vectored(kt._pack_page_message(
+                i, kps[i:i + depth], vps[i:i + depth]), timeout=0)
+            t1 = time.perf_counter()
+            view = ch.read_view(timeout=0)
+            pages += kt._copy_pages(*kt._unpack_page_view(view))
+            del view
+            ch.ack_read()
+            ms["channel_write"] += 1e3 * (t1 - t0)
+            ms["read_clone"] += 1e3 * (time.perf_counter() - t1)
+    finally:
+        ch.close()
+        ch.unlink()
+    dev = kv["k"].device
+    timed("h2d", lambda: [(kp.to(dev), vp.to(dev)) for _i, kp, vp in pages])
+    nbytes = k.nbytes + v.nbytes
+    return {"pages": n, "bytes": nbytes, "ms": ms,
+            "gb_per_s": {name: nbytes / t / 1e6 for name, t in ms.items()}}
+
+
+def pd_handoff(torch, kernels, card, cfg, params, prompts, max_tokens, ek,
+               want) -> dict:
+    """12a: prefill → export → batched pull → streamed admission, against
+    the monolithic run's tokens `want`. Returns the run's numbers and the
+    solo prefill logits (12b's reference)."""
+    import glob
+    import shutil
+
+    from ray_tpu_torch._private.constants import SHM_CHANNEL_GLOB, SHM_DIR
+    from ray_tpu_torch.llm import LLMEngine, PDConfig, SamplingParams
+    from ray_tpu_torch.llm.engine import bucket_for
+    from ray_tpu_torch.llm.kv_transfer import (BatchedKVPuller, KVPageStream,
+                                               PagedKVExporter)
+    from ray_tpu_torch.models import decoding
+    from ray_tpu_torch.models import decoding_paged as dp
+
+    dev = torch.device("cuda")
+    pd = PDConfig()
+    L, P = cfg.n_layers, ek["page_size"]
+    page_bytes = 2 * L * P * cfg.kv_heads * cfg.head_dim * 2  # K + V, bf16
+    chan_bytes = pd.prefetch_depth * page_bytes + 8192 + 64
+    usage = shutil.disk_usage(SHM_DIR)
+    print(json.dumps({"card": card, "dev_shm": {
+        "total": usage.total, "used": usage.used, "free": usage.free,
+        "channel_bytes": chan_bytes}}), flush=True)
+    if usage.free < chan_bytes:
+        fail(f"{SHM_DIR} has {usage.free} bytes free; one KV transfer "
+             f"channel needs {chan_bytes} ({pd.prefetch_depth} pages of "
+             f"{page_bytes} bytes + framing)")
+    wave = int(min(len(prompts), usage.free // chan_bytes))
+    # the long rows first, alone, active before the others arrive
+    order = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))
+    n_long = sum(len(p) >= PD_LONG for p in prompts)
+    groups = [part[i:i + wave] for part in (order[:n_long], order[n_long:])
+              for i in range(0, len(part), wave)]
+    shm_before = set(glob.glob(SHM_CHANNEL_GLOB))
+    w = torch.randint(-2 ** 62, 2 ** 62, (L * P * cfg.kv_heads * cfg.head_dim,),
+                      dtype=torch.int64, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(SEED))
+    adopted = []
+    real_write = dp.write_kv_pages
+
+    def write_and_hash(state, kv, pages):
+        real_write(state, kv, pages)
+        for pid in list(pages)[:kv["k"].shape[1] // P]:
+            adopted.append(torch.stack([page_hash(torch, state[x][:, pid], w)
+                                        for x in ("kp", "vp")]))
+        return state
+
+    dec = LLMEngine(cfg, params, **ek)
+    exporter = PagedKVExporter(send_timeout_s=pd.transfer_timeout_s,
+                               prefetch_pages=pd.prefetch_depth)
+    puller = BatchedKVPuller()
+    dp.write_kv_pages = write_and_hash
+    try:
+        torch.cuda.synchronize()
+        zero(kernels)  # the PD path starts here
+        t_start = time.perf_counter()
+        kvs, firsts, solo, exported = [], [], [], []
+        for p in prompts:
+            bucket = bucket_for(len(p), ek["min_bucket"], ek["max_len"])
+            toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+            toks[0, :len(p)] = torch.as_tensor(p, device=dev)
+            logits, kv = decoding.prefill(params, toks, len(p), cfg)
+            solo.append(logits)
+            firsts.append(int(torch.argmax(logits)))
+            kvs.append(kv)
+            exported += [torch.stack([page_hash(torch, kv[x][:, i * P:(i + 1)
+                                                             * P], w)
+                                      for x in ("k", "v")])
+                         for i in range(bucket // P)]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t_start
+        prefill_launches = counts(kernels)
+        reqs, export_ms, t_pull = {}, {}, {}
+        plane_s, streamed = 0.0, [0, 0.0]
+        for gi, group in enumerate(groups):
+            t_group = time.time()
+            st0 = dec.stats()  # the wave's export and transfer start here
+            tickets = {}
+            for i in group:
+                t0 = time.perf_counter()
+                tickets[i] = exporter.export(kvs[i]["k"], kvs[i]["v"],
+                                             len(prompts[i]), firsts[i], P)
+                export_ms[i] = 1e3 * (time.perf_counter() - t0)
+            streams = {}
+            for i in group:
+                t = tickets[i]
+                streams[i] = KVPageStream(t["n_pages"], t["page_size"])
+                t_pull[i] = time.time()
+                puller.pull(t, streams[i], timeout_s=pd.transfer_timeout_s)
+                reqs[i] = dec.submit_prefilled(
+                    length=t["length"], first_token=t["first_token"],
+                    params=SamplingParams(max_tokens=max_tokens[i]),
+                    kv_stream=streams[i])
+            def landed():
+                for i, s in streams.items():
+                    if s.take_error() is not None:
+                        fail(f"pd: transfer of prompt {len(prompts[i])}: "
+                             f"{s.take_error()!r}")
+                return all(s.finished_ts for s in streams.values())
+
+            wait_for(landed, f"the pages of wave {gi}")
+            plane_s += max(s.finished_ts for s in streams.values()) - t_group
+            st1 = dec.stats()
+            if st0["active"]:  # decode steps taken while it streamed
+                streamed[0] += st1["decode_steps"] - st0["decode_steps"]
+                streamed[1] += st1["decode_seconds"] - st0["decode_seconds"]
+            wait_for(lambda: all(reqs[i].admitted_ts for i in group),
+                     f"the rows of wave {gi} to activate")
+            wait_for(lambda: exporter.pending() == 0,
+                     f"wave {gi}'s channels to retire")
+        st_idle = dec.stats()
+        outs = [[firsts[i]] + list(reqs[i]) for i in range(len(prompts))]
+        wall = time.perf_counter() - t_start
+        launches = counts(kernels)
+        st = dec.stats()
+    finally:
+        dp.write_kv_pages = real_write
+        exporter.teardown()
+        puller.teardown()
+        dec.shutdown()
+    stages = plane_stages(torch, kvs[order[0]], P, pd.prefetch_depth)
+    del kvs
+    wait_for(lambda: not set(glob.glob(SHM_CHANNEL_GLOB)) - shm_before,
+             "the transfer segments to be unlinked", 10.0)
+    if outs != want:
+        bad = [i for i, (a, b) in enumerate(zip(outs, want)) if a != b]
+        fail(f"pd: prompts {[len(prompts[i]) for i in bad]} decode "
+             f"{[outs[i][:8] for i in bad]}, the monolithic engine "
+             f"{[want[i][:8] for i in bad]}")
+    adopted = sorted(tuple(h.tolist()) for h in adopted)
+    exported = sorted(tuple(h.tolist()) for h in exported)
+    if adopted != exported:
+        fail(f"pd: the {len(adopted)} adopted pool pages differ from the "
+             f"{len(exported)} exported pages")
+    flash, ragged = "flash_attention_fwd_bf16", "ragged_paged_attention_bf16"
+    want_launches = {k.symbol: 0 for k in kernels}
+    want_launches[flash] = L * len(prompts)
+    want_launches[ragged] = L * st["decode_steps"]
+    if launches != want_launches or prefill_launches[flash] != launches[flash] \
+            or st["prefills"] or not st["ragged_kernel"]:
+        fail(f"pd: launches {launches} (after the prefills "
+             f"{prefill_launches}), expected {want_launches} and no flash "
+             f"launch in the decode engine ({st['prefills']} prefills)")
+    n_pages = len(exported)
+    idle_steps = st["decode_steps"] - st_idle["decode_steps"]
+    row = {
+        "prompt_lengths": [len(p) for p in prompts],
+        "max_tokens": max_tokens, "waves": groups, "pages": n_pages,
+        "page_bytes": page_bytes, "bytes": n_pages * page_bytes,
+        "plane_gb_per_s": n_pages * page_bytes / plane_s / 1e9,
+        "plane_s": plane_s, "prefill_s": prefill_s,
+        "export_ms": [export_ms[i] for i in range(len(prompts))],
+        "pull_adopt_ms": [1e3 * (reqs[i].admitted_ts - t_pull[i])
+                          for i in range(len(prompts))],
+        "decode_steps": st["decode_steps"],
+        "decode_step_ms_streaming": (1e3 * streamed[1] / streamed[0]
+                                     if streamed[0] else None),
+        "decode_steps_streaming": streamed[0],
+        "decode_step_ms_idle_stream": (
+            1e3 * (st["decode_seconds"] - st_idle["decode_seconds"])
+            / idle_steps if idle_steps else None),
+        "decode_steps_idle_stream": idle_steps,
+        "decode_step_ms_mean": 1e3 * st["decode_seconds"] / st["decode_steps"],
+        "wall_s": wall, "tokens_out": sum(len(o) for o in outs),
+        "plane_stages_longest_prompt": stages,
+        "launches": launches, "tokens_exact": True,
+        "pages_byte_exact": True, "shm_leaked": 0}
+    return row, solo
+
+
+def pd_coalesced(torch, kernels, card, cfg, params, prompts, ek,
+                 solo) -> dict:
+    """12b: the 8 prompts from 8 threads into one PrefillCoalescer; each
+    row held to the solo prefill and an f32 run under phase 3's bounds."""
+    import dataclasses
+    import threading
+
+    from ray_tpu_torch.llm import PDConfig
+    from ray_tpu_torch.llm.pd import PrefillCoalescer
+    from ray_tpu_torch.models import decoding
+
+    dev = torch.device("cuda")
+    pd = PDConfig()
+    co = PrefillCoalescer(params, cfg, min_bucket=ek["min_bucket"],
+                          max_len=ek["max_len"],
+                          max_batch=pd.prefill_batch_max,
+                          window_s=pd.prefill_batch_window_s)
+    res: list = [None] * len(prompts)
+
+    def run(i):
+        try:
+            res[i] = co.prefill(prompts[i])
+        except BaseException as e:  # noqa: BLE001 — reported below
+            res[i] = e
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    zero(kernels)  # the coalesced prefill path starts here
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=PD_WAIT_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels)
+    co.teardown()
+    if any(t.is_alive() for t in threads):
+        fail("pd coalescer: a prefill thread did not return")
+    errors = [r for r in res if isinstance(r, BaseException)]
+    if errors:
+        fail(f"pd coalescer: {errors[0]!r}")
+    flash = "flash_attention_fwd_bf16"
+    want = {k.symbol: 0 for k in kernels}
+    want[flash] = cfg.n_layers * co.batches
+    if co.jobs != len(prompts) or launches != want:
+        fail(f"pd coalescer: {co.jobs} jobs in {co.batches} batches, "
+             f"launches {launches}, expected {want}")
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    rows = []
+    for i, p in enumerate(prompts):
+        logits, _k, _v, bucket = res[i]
+        toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+        toks[0, :len(p)] = torch.as_tensor(p, device=dev)
+        f32, _ = decoding.prefill(params, toks, len(p), cfg32,
+                                  attn_impl="reference")
+        row = {"prompt": len(p), "bucket": bucket,
+               **logit_row(torch, f"pd coalesced row {i}", logits, solo[i],
+                           f32),
+               "bit_identical_to_solo": bool(torch.equal(logits, solo[i])),
+               "first_token_agrees": int(torch.argmax(logits))
+               == int(torch.argmax(solo[i]))}
+        hold(f"pd coalesced prefill row of prompt {len(p)} vs solo prefill",
+             row)
+        rows.append(row)
+        del f32
+    return {"batches": co.batches, "jobs": co.jobs,
+            "max_batch": co.max_batch, "window_s": co.window_s,
+            "wall_s": wall, "launches": launches, "rows": rows}
+
+
+def serve_pd(torch, kernels, card: str, cfg, params) -> dict:
+    """Phase 12 on phase 10's model: the monolithic reference run, 12a and
+    12b. Returns each path's launch counts."""
+    import numpy as np
+
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.llm.pd import _pd_engine_kwargs
+
+    t_phase = time.perf_counter()
+    ek = _pd_engine_kwargs(LLMConfig(engine_kwargs={
+        "max_slots": 8, "max_len": 2048, "seed": SEED}))
+    rng = np.random.default_rng(SEED + 1)  # phase 4's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).tolist()
+               for n in SERVE_LENGTHS]
+    max_tokens = [PD_LONG_TOKENS if len(p) >= PD_LONG else 32
+                  for p in prompts]
+    order = sorted(range(len(prompts)), key=lambda i: -len(prompts[i]))
+    mono = LLMEngine(cfg, params, **ek)
+    try:
+        torch.cuda.synchronize()
+        zero(kernels)
+        t0 = time.perf_counter()
+        reqs = {i: mono.submit(prompts[i], SamplingParams(
+            max_tokens=max_tokens[i])) for i in order}
+        want = [list(reqs[i]) for i in range(len(prompts))]
+        mono_wall = time.perf_counter() - t0
+        mono_launches = counts(kernels)
+        st = mono.stats()
+    finally:
+        mono.shutdown()
+    expect = {k.symbol: 0 for k in kernels}
+    expect["flash_attention_fwd_bf16"] = cfg.n_layers * st["prefills"]
+    expect["ragged_paged_attention_bf16"] = cfg.n_layers * st["decode_steps"]
+    if mono_launches != expect or [len(o) for o in want] != max_tokens:
+        fail(f"pd monolithic run: launches {mono_launches}, expected "
+             f"{expect}; lengths {[len(o) for o in want]}")
+    handoff, solo = pd_handoff(torch, kernels, card, cfg, params, prompts,
+                               max_tokens, ek, want)
+    print(json.dumps({"card": card, "pd_handoff": handoff}), flush=True)
+    print(f"pd handoff on {card}: {handoff['pages']} pages, "
+          f"{handoff['bytes']} bytes, plane {handoff['plane_gb_per_s']:.3f} "
+          f"GB/s; export {np.mean(handoff['export_ms']):.3f} ms and "
+          f"pull/adopt {np.mean(handoff['pull_adopt_ms']):.3f} ms a request "
+          f"(mean); decode step {handoff['decode_step_ms_streaming']} ms "
+          f"while transfers stream, {handoff['decode_step_ms_idle_stream']} "
+          f"ms after; monolithic decode step "
+          f"{1e3 * st['decode_seconds'] / st['decode_steps']:.3f} ms; one "
+          f"bucket's stages alone (ms): "
+          f"{handoff['plane_stages_longest_prompt']['ms']}", flush=True)
+    coalesced = pd_coalesced(torch, kernels, card, cfg, params, prompts, ek,
+                             solo)
+    print(json.dumps({"card": card, "pd_coalesced_prefill": coalesced}),
+          flush=True)
+    print(f"pd coalesced prefill on {card}: {coalesced['jobs']} prompts in "
+          f"{coalesced['batches']} batches, "
+          f"{sum(r['bit_identical_to_solo'] for r in coalesced['rows'])} "
+          f"rows bit-identical to solo, "
+          f"{sum(r['first_token_agrees'] for r in coalesced['rows'])} first "
+          f"tokens agree; phase 12 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"pd_monolithic": mono_launches, "pd_handoff": handoff["launches"],
+            "pd_coalesced_prefill": coalesced["launches"],
+            "monolithic": {"wall_s": mono_wall, "stats": st}}
 
 
 # ----------------------------------------------------------------- phase 11
@@ -1692,6 +2096,7 @@ def main() -> int:
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after building and checking the kernels")
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
 
@@ -1738,6 +2143,8 @@ def main() -> int:
     checks += [check_flash(torch, gen, T, True, timed=True)
                for T in (64, 1024, 2048)]
     checks.append(check_flash(torch, gen, 1024, False, timed=True))
+    # a coalesced prefill's shape (phase 12b: two prompts of bucket 1024)
+    checks.append(check_flash(torch, gen, 1024, True, timed=True, B=2))
     checks.append(check_flash(torch, gen, 2048, True, timed=True, D=64, B=4))
     rin = ragged_inputs(torch, gen)
     checks += [check_ragged(torch, rin, nb, timed=True) for nb in (1, 16, 32)]
@@ -1781,9 +2188,11 @@ def main() -> int:
     launches = {"serve": {}, "train": {}, "serve_mixtral": {},
                 "serve_gpt2": {}, "vit": {},
                 **{f"engine_{r}": {} for r in ENGINE_RUNS},
+                "pd_monolithic": {}, "pd_handoff": {},
+                "pd_coalesced_prefill": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
-        from ray_tpu_torch.models import llama, mixtral
+        from ray_tpu_torch.models import llama, mixtral, transformer
 
         model = check_model(torch, llama.llama_config("8b"),
                             "llama-3-8b random init bf16")
@@ -1844,9 +2253,21 @@ def main() -> int:
               f"{gpt2_serving['prefill_ms_mean']:.3f} ms mean, decode step "
               f"{gpt2_serving['decode_step_ms_mean']:.3f} ms mean, "
               f"{gpt2_serving['tokens_per_s']:.1f} tokens/s", flush=True)
-        # phase 10: the engine's options on Llama-3-8B
-        for name, n in serve_options(torch, all_kernels, card).items():
+        # phase 10: the engine's options on Llama-3-8B, built once
+        cfg8b = llama.llama_config("8b")
+        params8b = transformer.init(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg8b,
+            torch.device("cuda"), dtype=cfg8b.dtype)
+        for name, n in serve_options(torch, all_kernels, card, cfg8b,
+                                     params8b).items():
             launches[f"engine_{name}"] = n
+        torch.cuda.empty_cache()
+        # phase 12: PD disaggregation on the same model, before phase 11
+        # needs the card's memory
+        pd = serve_pd(torch, all_kernels, card, cfg8b, params8b)
+        for path in ("pd_monolithic", "pd_handoff", "pd_coalesced_prefill"):
+            launches[path] = pd[path]
+        del params8b
         torch.cuda.empty_cache()
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
@@ -1900,6 +2321,8 @@ def main() -> int:
             "case": c["case"], "max_abs_err": err, "ms": ms,
             "plain_ms": c["plain_ms"], "bound_ms": bms, "bound_by": by,
             "bound_share": bms / ms, "library_ms": c["library_ms"]})
+    print(json.dumps({"card": card, "script_s": time.perf_counter() - t_script}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

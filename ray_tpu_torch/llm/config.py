@@ -1,6 +1,6 @@
 """LLMConfig — the config object the engine is built from (own copy of
-ray_tpu/llm/config.py's LLMConfig, ModelLoadingConfig and LoraConfig,
-without jax).
+ray_tpu/llm/config.py's LLMConfig, ModelLoadingConfig, LoraConfig and
+PDConfig, without jax).
 
 ``build_model`` builds a config of the gpt2, llama or mixtral family
 (the JAX package's factory table) and returns random weights
@@ -34,6 +34,32 @@ class LoraConfig:
 
 
 @dataclass
+class PDConfig:
+    """Prefill/decode disaggregation knobs (llm/pd.py, llm/kv_transfer.py);
+    every field and default of the JAX package's PDConfig."""
+
+    # KV handoff granularity in tokens; must divide the engine buckets, so
+    # both pools bump min_bucket up to it (pd._pd_engine_kwargs). Power of 2.
+    page_size: int = 64
+    # handoff timeout: a decode side that never pulls (or dies mid-pull)
+    # frees the prefill side's channel after this long
+    transfer_timeout_s: float = 60.0
+    # pages per transfer message: the in-flight prefetch window, at the
+    # cost of prefetch_depth * page_bytes of channel buffer per transfer
+    prefetch_depth: int = 2
+    # decode-side pulls through one shared BatchedKVPuller + streamed slot
+    # admission; False: pull everything, then admit
+    batched_pull: bool = True
+    # prefill-tier admission batching (pd.PrefillCoalescer): concurrent
+    # same-bucket prompts coalesce into one [B, T] forward; the window is
+    # how long the batch leader waits for stragglers
+    prefill_batch_max: int = 4
+    prefill_batch_window_s: float = 0.0015
+    num_prefill_replicas: int = 1
+    num_decode_replicas: int = 1
+
+
+@dataclass
 class LLMConfig:
     model_loading_config: ModelLoadingConfig = field(default_factory=ModelLoadingConfig)
     # the family of the built-in configs: gpt2, llama or mixtral
@@ -45,6 +71,8 @@ class LLMConfig:
     deployment_config: dict = field(default_factory=dict)
     accelerator_type: str | None = "GPU"
     lora_config: LoraConfig | None = None
+    # PD disaggregation; None → PDConfig() defaults
+    pd_config: PDConfig | None = None
 
     def build_model(self, device=None):
         """Returns (TransformerConfig, params) on `device` (cuda unless the

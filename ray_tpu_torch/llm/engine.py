@@ -37,9 +37,14 @@ On the card, whole-prompt prefills and first chunks run the flash kernel
 and the paged ragged decode step the ragged paged kernel (as in
 ray_tpu/llm/engine.py:306-307, iff the device can run it); the slot and
 verify steps, the gather step and the continuation prefill are plain
-PyTorch, as their JAX counterparts use no Pallas kernel. PD
-``submit_prefilled`` is not ported yet: asking for it raises and names its
-ROADMAP.md item.
+PyTorch, as their JAX counterparts use no Pallas kernel.
+
+PD disaggregation: ``submit_prefilled`` admits a sequence whose prefill
+ran elsewhere, as whole K/V arrays, as transferred pages, or as a
+``kv_transfer.KVPageStream`` still being fed (the slot and its pages are
+granted at once, each page is adopted as it arrives, between decode
+steps, and the row activates on the last page). Pages arrive as host
+tensors and go to the pool's device with one copy a page.
 
 Tensor parallelism, ``mesh=`` (a DeviceMesh with a "tp" dimension, every
 other dimension of size 1): every rank of the mesh builds the same engine
@@ -124,6 +129,12 @@ class _Request:
     lora_released: bool = False
     # absolute wall-clock deadline (0 = none)
     deadline_ts: float = 0.0
+    # prefilled elsewhere (PD): the transferred KV and first token, and for
+    # streamed admission the kv_transfer.KVPageStream still being fed
+    kv_pack: dict | None = None
+    kv_stream: object | None = None
+    # wall clock of the slot's activation
+    admitted_ts: float = 0.0
 
     def __iter__(self):
         """Yield generated tokens as they are produced."""
@@ -403,6 +414,7 @@ class LLMEngine:
         self._by_slot: dict[int, _Request] = {}
         self._waiting: queue.SimpleQueue = queue.SimpleQueue()
         self._backlog: list = []  # paged: admitted-later queue (page pressure)
+        self._streaming: list = []  # PD: slot granted, pages still arriving
         self._rid = itertools.count()
         self._work = threading.Event()
         self._stop = False
@@ -604,14 +616,117 @@ class LLMEngine:
         req = _Request(next(self._rid), token_ids, params,
                        history=list(token_ids), lora_idx=lora_idx,
                        deadline_ts=float(deadline_ts or 0.0))
+        self._enqueue(req)
+        return req
+
+    def _enqueue(self, req: _Request) -> None:
         with self._count_lock:
             self._waiting.put(req)
             self._submitted += 1
         self._work.set()
-        return req
 
-    def submit_prefilled(self, *args, **kwargs):
-        raise _not_ported("submit_prefilled (PD disaggregation)")
+    def submit_prefilled(self, k=None, v=None, length: int = 0,
+                         first_token: int = 0,
+                         params: SamplingParams | None = None, *,
+                         k_pages: list | None = None,
+                         v_pages: list | None = None,
+                         kv_stream=None,
+                         deadline_ts: float = 0.0) -> _Request:
+        """Admit a sequence whose prefill ran elsewhere (PD disaggregation).
+
+        Three forms:
+        - whole-array: k/v are [L, T, Hkv, Dh] host arrays or tensors for
+          the prompt prefix;
+        - page-granular: k_pages/v_pages are ordered lists of
+          [L, page_size, Hkv, Dh] pages (the shm transfer plane's unit).
+          On the paged layout each page is written into a granted pool page
+          (``write_kv_pages``) and the row activated (``activate_slot``):
+          no whole-bucket array is assembled;
+        - streamed: kv_stream is a kv_transfer.KVPageStream the transfer
+          plane is still feeding. The slot and its pages are granted now
+          and each page is adopted as it arrives; the decode loop keeps
+          stepping other slots meanwhile, and the row activates on the
+          last page. A transfer failure is a per-request error; the slot
+          and its pages are reclaimed.
+
+        The caller already holds ``first_token`` (it counts against
+        max_tokens); the request yields the tokens after it.
+        """
+        self._check_alive()
+        if self.mesh is not None:
+            # a tp rank's pool holds Hkv/tp heads, and a ticket's channel
+            # has one reader: no faithful split of a transfer across ranks
+            raise _not_ported("submit_prefilled under mesh= (PD on a "
+                              "tensor-parallel engine)")
+        params = params or SamplingParams()
+        paged_form = k_pages is not None or v_pages is not None
+        if kv_stream is not None:
+            if paged_form or k is not None or v is not None:
+                raise ValueError(
+                    "pass kv_stream alone, not with k/v or k_pages/v_pages")
+            P = int(kv_stream.page_size)
+            if self.kv_layout == "paged" and P != self.page_size:
+                raise ValueError(
+                    f"streamed page size {P} != engine page_size "
+                    f"{self.page_size}: prefill and decode pools must agree")
+            bucket = int(kv_stream.n_pages) * P
+        elif paged_form:
+            if k is not None or v is not None:
+                raise ValueError(
+                    "pass either k/v arrays or k_pages/v_pages, not both")
+            if not k_pages or not v_pages or len(k_pages) != len(v_pages):
+                raise ValueError(
+                    "k_pages and v_pages must be equal-length non-empty "
+                    "lists of [L, page_size, Hkv, Dh] pages")
+            P = k_pages[0].shape[1]
+            if any(p.shape[1] != P for p in list(k_pages) + list(v_pages)):
+                raise ValueError("transferred pages have mixed page sizes")
+            if self.kv_layout == "paged" and P != self.page_size:
+                raise ValueError(
+                    f"transferred page size {P} != engine page_size "
+                    f"{self.page_size}: prefill and decode pools must agree")
+            bucket = len(k_pages) * P
+        else:
+            if k is None or v is None:
+                raise ValueError(
+                    "submit_prefilled needs k/v arrays, k_pages/v_pages, "
+                    "or kv_stream")
+            bucket = k.shape[1]
+        if bucket > self.max_len:
+            raise ValueError(
+                f"transferred prefix bucket {bucket} exceeds engine "
+                f"max_len {self.max_len}")
+        if self.kv_layout == "paged":
+            if bucket % self.page_size:
+                raise ValueError(
+                    f"transferred prefix bucket {bucket} is not a "
+                    f"multiple of page_size {self.page_size}: configure the "
+                    f"prefill side with min_bucket >= page_size")
+            need = self._pages_needed(int(length), bucket, params.max_tokens)
+            if need > self.num_pages - 1:
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool only has "
+                    f"{self.num_pages - 1}")
+        if int(length) + params.max_tokens > self.max_len:
+            raise ValueError(
+                f"prefix length {int(length)} + max_tokens {params.max_tokens} "
+                f"does not fit engine max_len {self.max_len}")
+        req = _Request(next(self._rid), [], params,
+                       deadline_ts=float(deadline_ts or 0.0))
+        pack = {"length": int(length), "first_token": int(first_token)}
+        if kv_stream is not None:
+            req.kv_stream = kv_stream
+            # feed()/finish()/fail() wake the scheduler, so a parked loop
+            # adopts new pages at once instead of on its poll tick
+            kv_stream._wake = self._work.set
+        elif paged_form:
+            pack.update(k_pages=list(k_pages), v_pages=list(v_pages))
+        else:
+            pack.update(k=k, v=v)
+        req.kv_pack = pack
+        req.generated = 1  # the transferred first token counts
+        self._enqueue(req)
+        return req
 
     def generate(self, token_ids: list, params: SamplingParams | None = None,
                  *, lora: str | None = None) -> list:
@@ -643,11 +758,12 @@ class LLMEngine:
         """Unblock every waiting caller: end-of-stream, or the failure."""
         marker = _EngineError(error) if error is not None else _SENTINEL
         for req in (list(self._by_slot.values()) + self._backlog
-                    + self._prefilling):
+                    + self._prefilling + self._streaming):
             self._lora_release(req)
             req.out_queue.put(marker)
         self._backlog.clear()
         self._prefilling.clear()
+        self._streaming.clear()
         while True:
             try:
                 req = self._waiting.get_nowait()
@@ -800,6 +916,7 @@ class LLMEngine:
         sampling params, LoRA row, request registry, and the row's device
         length mirrored host-side for the ragged step's page bound."""
         req.length0 = int(length)
+        req.admitted_ts = time.time()
         self._set_row_sampling(slot, req.params)
         if self.lora_bank is not None:
             self._slot_lora[slot] = req.lora_idx
@@ -861,6 +978,28 @@ class LLMEngine:
                 continue
             slot = self._free.pop()
             req.slot = slot
+            if req.kv_pack is not None:
+                if req.generated >= req.params.max_tokens:
+                    # budget already spent by the transferred first token
+                    self._free.append(slot)
+                    self._lora_release(req)
+                    req.out_queue.put(_SENTINEL)
+                    continue
+                if req.kv_stream is not None:
+                    # streamed admission: slot and pages granted now, pages
+                    # adopted as they arrive (_drain_streams). No prefill
+                    # compute, so it does not count against the budget
+                    if not self._admit_stream(req, slot):
+                        self._free.append(slot)
+                        self._backlog.append(req)
+                        return  # page pressure: stop admitting this round
+                    continue
+                if not self._insert_transferred(req, slot):
+                    self._free.append(slot)
+                    self._backlog.append(req)
+                    return  # page pressure: stop admitting this round
+                admitted += 1
+                continue
             t0 = time.perf_counter()
             if self.kv_layout == "paged" and (self.enable_prefix_cache
                                               or self.prefill_chunk):
@@ -895,6 +1034,143 @@ class LLMEngine:
             self.prefill_seconds += time.perf_counter() - t0
             admitted += 1
             self._emit(req, first_id)
+
+    # ------------------------------------------------------- PD admission
+
+    def _pool_tensor(self, x) -> torch.Tensor:
+        """A transferred host array or tensor on the cache's device and
+        dtype: one host-to-device copy."""
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
+            np.asarray(x))
+        dt = self.state["k" if self.kv_layout == "slot" else "kp"].dtype
+        return t.to(self.device, dt)
+
+    def _adopt_pages(self, pages: list, items) -> None:
+        """Write transferred (index, k_page, v_page) items into the granted
+        pool `pages` (write_kv_pages, one [L, P, Hkv, Dh] page at a time)."""
+        for i, kp, vp in items:
+            dp.write_kv_pages(self.state, {"k": self._pool_tensor(kp),
+                                           "v": self._pool_tensor(vp)},
+                              [pages[i]])
+
+    def _grant_transferred(self, req: _Request, slot: int,
+                           n_pages: int) -> bool:
+        """Grant `slot` every pool page a transferred sequence of `n_pages`
+        prefix pages will ever touch; False when the pool cannot now."""
+        pages = self._grant_pages(self._pages_needed(
+            req.kv_pack["length"], n_pages * self.page_size,
+            req.params.max_tokens))
+        if pages is None:
+            return False
+        self._slot_pages[slot] = pages
+        return True
+
+    def _activate_transferred(self, req: _Request, slot: int) -> None:
+        """Turn a row whose transferred pages are all in the pool live."""
+        pack = req.kv_pack
+        granted = self._slot_pages[slot]
+        row = np.zeros((self.max_pages_per_seq,), np.int32)
+        row[:len(granted)] = granted
+        dp.activate_slot(self.state, slot, row, pack["length"],
+                         pack["first_token"])
+        self._bind_slot(req, slot, pack["length"])
+
+    def _insert_transferred(self, req: _Request, slot: int) -> bool:
+        """Insert a kv_pack from a prefill elsewhere. Pages on the paged
+        layout are adopted into granted pool pages; whole arrays, and pages
+        on the slot layout (assembled on the host), take _insert. False
+        when the pool cannot host the sequence now (the caller
+        backlogs)."""
+        pack = req.kv_pack
+        if "k_pages" in pack:
+            if self.kv_layout == "paged":
+                if not self._grant_transferred(req, slot,
+                                               len(pack["k_pages"])):
+                    return False
+                self._adopt_pages(self._slot_pages[slot],
+                                  zip(itertools.count(), pack["k_pages"],
+                                      pack["v_pages"]))
+                self._activate_transferred(req, slot)
+                return True
+            # the slot layout has no page pool: assemble the bucket
+            kv = {name: torch.cat([torch.as_tensor(p)
+                                   for p in pack[f"{name}_pages"]], dim=1)
+                  for name in ("k", "v")}
+        else:
+            kv = {"k": pack["k"], "v": pack["v"]}
+        kv = {name: self._pool_tensor(x) for name, x in kv.items()}
+        return self._insert(req, slot, kv, pack["length"],
+                            pack["first_token"])
+
+    def _admit_stream(self, req: _Request, slot: int) -> bool:
+        """Streamed admission: grant the slot and every page the sequence
+        will ever need now; pages are written as the transfer delivers
+        them (_drain_streams) and the row activates on the last one. False
+        when the pool cannot host the sequence yet (the caller backlogs;
+        arrived pages keep buffering in the stream)."""
+        if self.kv_layout == "paged" and not self._grant_transferred(
+                req, slot, req.kv_stream.n_pages):
+            return False
+        req.slot = slot
+        req.pf_done = 0
+        self._streaming.append(req)
+        return True
+
+    def _fail_stream(self, req: _Request, err) -> None:
+        """Reclaim a streamed admission whose transfer died: the slot was
+        granted but never activated, so only host bookkeeping unwinds."""
+        if req in self._streaming:
+            self._streaming.remove(req)
+        if self.kv_layout == "paged":
+            self._free_pages.extend(self._slot_pages.pop(req.slot, ()))
+        self._free.append(req.slot)
+        self._lora_release(req)
+        if not isinstance(err, BaseException):
+            err = RuntimeError(str(err))
+        req.out_queue.put(_RequestError(err))
+
+    def _drain_streams(self) -> bool:
+        """Adopt every page that arrived since the last pass into its slot's
+        granted pages, and activate the rows whose last page landed. Runs
+        between decode steps. True if anything moved."""
+        progressed = False
+        for req in list(self._streaming):
+            st = req.kv_stream
+            err = st.take_error()
+            if err is not None:
+                self._fail_stream(req, err)
+                progressed = True
+                continue
+            try:
+                ready = st.take_ready()
+                if ready:
+                    progressed = True
+                    if self.kv_layout == "paged":
+                        self._adopt_pages(self._slot_pages[req.slot], ready)
+                    else:
+                        # the slot layout has no page pool: buffer, then
+                        # assemble at completion
+                        kps = req.kv_pack.setdefault(
+                            "k_pages", [None] * st.n_pages)
+                        vps = req.kv_pack.setdefault(
+                            "v_pages", [None] * st.n_pages)
+                        for i, kp, vp in ready:
+                            kps[i], vps[i] = kp, vp
+                    req.pf_done += len(ready)
+                if req.pf_done >= st.n_pages:
+                    self._streaming.remove(req)
+                    if self.kv_layout == "paged":
+                        self._activate_transferred(req, req.slot)
+                    else:
+                        req.kv_stream = None
+                        self._insert_transferred(req, req.slot)
+                    progressed = True
+            except Exception as e:  # noqa: BLE001 — a malformed page must
+                # fail THIS request, not the scheduler (engine death would
+                # drop every other in-flight request)
+                self._fail_stream(req, e)
+                progressed = True
+        return progressed
 
     def _admit_cached(self, req: _Request, slot: int):
         """Paged admission with hash-block prefix reuse and/or chunking.
@@ -1137,6 +1413,11 @@ class LLMEngine:
         caller. False when it is in none of them."""
         if req.slot >= 0 and self._by_slot.get(req.slot) is req:
             self._release_active(req)
+        elif req in self._streaming:
+            # _fail_stream reclaims and puts its own _RequestError
+            self._fail_stream(req, err)
+            self.aborts += 1
+            return True
         elif req in self._prefilling:
             self._prefilling.remove(req)
             self._free_pages.extend(self._slot_pages.pop(req.slot, ()))
@@ -1161,8 +1442,8 @@ class LLMEngine:
             self._abort_pending.setdefault(rid, now)
         if not self._abort_pending:
             return
-        for req in (list(self._by_slot.values()) + list(self._prefilling)
-                    + list(self._backlog)):
+        for req in (list(self._by_slot.values()) + list(self._streaming)
+                    + list(self._prefilling) + list(self._backlog)):
             if req.rid in self._abort_pending and self._abort_one(
                     req, RequestCancelledError(f"request {req.rid} cancelled")):
                 del self._abort_pending[req.rid]
@@ -1171,7 +1452,8 @@ class LLMEngine:
                 del self._abort_pending[rid]
 
     def _expire_deadlines(self, now: float) -> None:
-        for reqs in (self._by_slot.values(), self._prefilling, self._backlog):
+        for reqs in (self._by_slot.values(), self._streaming,
+                     self._prefilling, self._backlog):
             for req in list(reqs):
                 if req.deadline_ts and now > req.deadline_ts:
                     self._abort_one(req, DeadlineExceededError(
@@ -1259,7 +1541,8 @@ class LLMEngine:
 
     def _idle(self) -> bool:
         return (not self._by_slot and self._waiting.empty()
-                and not self._backlog and not self._prefilling)
+                and not self._backlog and not self._prefilling
+                and not self._streaming)
 
     def _loop_inner(self):
         with use_mesh(self.mesh):
@@ -1278,11 +1561,17 @@ class LLMEngine:
         self._apply_aborts(self._now)
         self._expire_deadlines(self._now)
         self._admit()
+        streamed = self._drain_streams() if self._streaming else False
         if self._prefilling:
             # one chunk a pass: running requests keep emitting while a long
             # prompt streams in
             self._prefill_step()
         if not self._by_slot:
+            if self._streaming and not streamed:
+                # nothing to decode and no new pages: park until the
+                # transfer plane's feed() wakes the loop
+                self._work.wait(timeout=0.005)
+                self._work.clear()
             return True
         if self.speculative_k:
             self._speculative_step()
@@ -1307,6 +1596,7 @@ class LLMEngine:
     def stats(self) -> dict:
         out = {"free_slots": len(self._free), "active": len(self._by_slot),
                "waiting": self._waiting.qsize() + len(self._backlog),
+               "streaming": len(self._streaming),
                "max_slots": self.max_slots, "buckets": list(self.buckets),
                "kv_layout": self.kv_layout, "attn_impl": self.attn_impl,
                "ragged_kernel": self._ragged_kernel,

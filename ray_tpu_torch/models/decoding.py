@@ -1,8 +1,10 @@
 """KV-cache decoding, the twin of ray_tpu/models/decoding.py.
 
 ``prefill`` runs one prompt at its bucketed length and returns per-layer KV
-for either cache layout. Its attention goes through ``ops.attention``: the
-flash kernel on the card, where every bucket is a multiple of 64.
+for either cache layout, ``prefill_batch`` several prompts of one bucket
+at once (the PD prefill tier). Their attention goes through
+``ops.attention``: the flash kernel on the card, where every bucket is a
+multiple of 64.
 ``_mlp_block`` is the dense mlp or, for a MoE config, the routed experts
 (``transformer._mlp_block``); a MoE layer's output depends on the whole
 call's rows, which share the experts' capacity: the bucket's padding at
@@ -158,6 +160,42 @@ def prefill(params, tokens, length: int, cfg: TransformerConfig, *,
         kv_v[i] = v[0]
     x = _norm(x, params["final_norm"], cfg)
     logits = lm_logits(x[0, length - 1], params, cfg)
+    return logits.float(), {"k": kv_k, "v": kv_v}
+
+
+@torch.no_grad()
+def prefill_batch(params, tokens, lengths, cfg: TransformerConfig):
+    """Batched prompt prefill: [B, T] tokens (one shared bucket, padded;
+    true per-row lengths in `lengths` [B]).
+
+    Returns (logits_at_last [B, V] f32, kv {k, v: [L, B, T, Hkv, Dh]}).
+    The PD prefill tier's admission batching (llm/pd.py PrefillCoalescer):
+    queued prompts of one bucket share one forward, whose attention is the
+    flash kernel at batch B on the card. Causality keeps rows independent:
+    positions past a row's length only produce KV the consumer masks.
+    """
+    dt = cfg.dtype
+    B, T = tokens.shape
+    x = embed_tokens(params, tokens, cfg)
+    if cfg.pos == "learned":
+        x = x + params["pos_embed"][:T].to(dt)
+    cos, sin = rope_tables(cfg, x.device)
+    L, Hkv, Dh = cfg.n_layers, local_heads(params)[1], cfg.head_dim
+    kv_k = torch.empty((L, B, T, Hkv, Dh), dtype=dt, device=x.device)
+    kv_v = torch.empty_like(kv_k)
+    for i, lp in enumerate(unstack_layers(params)):
+        q, k, v = _attn_qkv(_norm(x, lp["norm1"], cfg), lp["attn"], cfg)
+        if cfg.pos == "rope":
+            q = ops.apply_rope(q, cos, sin)
+            k = ops.apply_rope(k, cos, sin)
+        out = ops.attention(q, k, v, causal=True)
+        x = x + _attn_out(out, lp["attn"], cfg)
+        x = x + _mlp_block(_norm(x, lp["norm2"], cfg), lp, cfg)
+        kv_k[i] = k
+        kv_v[i] = v
+    x = _norm(x, params["final_norm"], cfg)
+    last = torch.as_tensor(lengths, device=x.device).long() - 1
+    logits = lm_logits(x[torch.arange(B, device=x.device), last], params, cfg)
     return logits.float(), {"k": kv_k, "v": kv_v}
 
 

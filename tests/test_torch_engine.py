@@ -1,5 +1,5 @@
 """ray_tpu_torch.llm.LLMEngine against ray_tpu's TPUEngine on the CPU, plus
-the port's device and not-yet-ported rules and its jax-free import. The
+the port's device rule and its jax-free import. The
 engine's other options are held to TPUEngine in test_torch_engine_slot.py,
 test_torch_prefix_chunk.py, test_torch_speculative.py, test_torch_lora.py
 and test_torch_guided.py."""
@@ -146,16 +146,6 @@ def test_engine_unported_knobs_raise(tiny):
         LLMEngine(tcfg, tparams, device="cpu", **{**ENGINE, "mesh": object()})
 
 
-def test_engine_unported_request_options_raise(tiny):
-    _, _, tcfg, tparams = tiny
-    eng = LLMEngine(tcfg, tparams, device="cpu", **ENGINE)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            eng.submit_prefilled(length=3)
-    finally:
-        eng.shutdown()
-
-
 def test_entry_points_raise_without_gpu(tiny, monkeypatch):
     """No GPU and no device= → the entry points raise; they never fall back
     to the CPU on their own."""
@@ -233,6 +223,9 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.models.gpt2, ray_tpu_torch.models.mixtral\n"
         "import ray_tpu_torch.parallel, ray_tpu_torch.parallel.dryrun\n"
         "import ray_tpu_torch.train.zero\n"
+        "import ray_tpu_torch.llm.kv_transfer, ray_tpu_torch.llm.pd\n"
+        "import ray_tpu_torch.experimental.channel.mutable_shm\n"
+        "import ray_tpu_torch.util.metrics, ray_tpu_torch._private.constants\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

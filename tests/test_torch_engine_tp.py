@@ -4,7 +4,8 @@ the same tokens, greedy token-exact against ray_tpu's TPUEngine on a
 adapter (twins of tests/test_llm_paged.py's tensor-parallel tests): slot
 and paged layouts with a concurrent batch, the prefix cache with chunked
 prefill, speculative decoding, LoRA, an abort and an expired deadline
-(tokens and counters); and against the unmeshed LLMEngine.
+(tokens and counters); and against the unmeshed LLMEngine. PD admission
+(``submit_prefilled``) is refused under the mesh.
 """
 
 import numpy as np
@@ -150,6 +151,15 @@ def _tp_rank(jparams):
     for name in OPTIONS:
         out[name] = _serve_option(make, SamplingParams, name)
     out["cancel"] = _cancel(make, SamplingParams, _port_errors())
+    eng = make(**PAGED)
+    try:  # PD admission is refused under the mesh, before any request
+        page = torch.zeros((2, 8, 2, 16))
+        eng.submit_prefilled(length=3, first_token=1, k_pages=[page],
+                             v_pages=[page])
+    except NotImplementedError as e:
+        out["pd_refusal"] = str(e)
+    finally:
+        eng.shutdown()
     return out
 
 
@@ -258,3 +268,12 @@ def test_abort_and_deadline_agreed_across_ranks(tiny, world):
                   (RequestCancelledError, DeadlineExceededError))
     for r in world:
         assert r["cancel"] == want == ref
+
+
+def test_submit_prefilled_under_mesh_is_refused_naming_roadmap(world):
+    """A tp rank's pool holds n_kv_heads / tp heads and a ticket's channel
+    has one reader: PD admission under mesh= raises and names its
+    ROADMAP.md item."""
+    for r in world:
+        assert "mesh" in r["pd_refusal"]
+        assert "ROADMAP.md Queue 1" in r["pd_refusal"]
