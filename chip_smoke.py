@@ -164,6 +164,32 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       solo prefill of its prompt and an f32 run under phase 3's bounds,
       flash launches = 32 x the coalescer's batches, jobs = 8.
 
+13. The port's runtime core on the card (``ray_tpu_torch.init``; after
+   phase 12 has freed its model, before phase 11). Requests go to the
+   engines while their schedulers are held (``hold_admission``), so a
+   run's admission, and its bf16 tokens, do not depend on arrival timing.
+   a. ``cluster_resources()["GPU"]`` equals the driver's device count; a
+      ``num_gpus=1`` task sees ``CUDA_VISIBLE_DEVICES`` equal to its grant
+      and one device, a CPU task no CUDA.
+   b. A ``num_gpus=1`` task runs the flash forward at [1,32,1024,128]
+      causal and ragged decode at phase 2's case on seeded inputs and
+      returns the CUDA outputs (back on the driver's card through the
+      object store, bf16) and its own launch counts (exactly one each);
+      the driver holds them to the plain versions on the same inputs at
+      phase 2's tolerances and prints whether the worker had to run nvcc.
+   c. A ``num_gpus=1`` actor runs phase 4's ``serve()`` twice: weight
+      fingerprints and tokens equal phase 4's, launches layers x prefills
+      and layers x steps, no backward.
+   d. While that actor lives, a second ``num_gpus=1`` actor cannot start
+      (``GetTimeoutError``); it starts after ``kill(first)``.
+   e. ``init()`` s, a GPU worker's boot and its first torch import with a
+      CUDA context, a no-op GPU task's round trip, put/get GB/s of a 256
+      MiB CPU and CUDA tensor (three rounds), the actor's prefill and
+      decode-step ms beside phase 4's.
+   The session's shm segments are ``/dev/shm/rtpt_<session>*``, never
+   ``rtpu_<session>*``; after ``shutdown()`` no worker process and no
+   segment of the session under either prefix is left.
+
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -681,14 +707,51 @@ def check_model(torch, cfg, label: str) -> dict:
 SERVE_LENGTHS = [5, 64, 65, 300, 700, 1000, 1300, 1500]
 
 
+def hold_admission(eng):
+    """Until the returned event is set, the engine's scheduler waits at the
+    top of its next pass: requests submitted meanwhile are all seen by one
+    pass, so the run depends on their order only, not on when the
+    submitting thread got the CPU (a bf16 row's logits depend on the
+    batch it decodes in)."""
+    import threading
+
+    gate = threading.Event()
+    sync = eng._sync_pass
+
+    def gated():
+        gate.wait()
+        return sync()
+
+    eng._sync_pass = gated
+    return gate
+
+
+def weight_fingerprints(torch, params) -> dict:
+    """Exact fingerprints of a few weight leaves: their 16-bit words times
+    fixed int64 weights, summed modulo 2**64 (equal bytes, equal values)."""
+    def fp(t):
+        x = t.contiguous().view(torch.int16).flatten().to(torch.int64)
+        w = torch.arange(1, x.numel() + 1, device=x.device,
+                         dtype=torch.int64) * 0x5DEECE66D + 11
+        return int((x * w).sum().item())
+
+    layers = params["layers"]
+    return {"embed[:1024]": fp(params["embed"][:1024]),
+            "wq[0]": fp(layers["attn"]["wq"][0]),
+            "wo[-1]": fp(layers["attn"]["wo"][-1]),
+            "final_norm": fp(params["final_norm"]["w"])}
+
+
 def serve(torch, kernels, family: str = "llama", model_id: str = "8b",
           model_kwargs: dict | None = None, lengths=SERVE_LENGTHS,
           max_len: int = 2048) -> dict:
     """Greedy requests with prompts of `lengths` tokens and max_tokens 32
     through ``LLMEngine.from_config`` of a model family (paged KV, page 64,
-    8 slots). The counts of `kernels` are zeroed just before the requests
-    and read just after: flash forward = layers x prefills, ragged = layers
-    x decode steps, and no backward kernel."""
+    8 slots), submitted while the scheduler is held (``hold_admission``).
+    The counts of `kernels` are zeroed just before the requests and read
+    just after: flash forward = layers x prefills, ragged = layers x decode
+    steps, and no backward kernel. Returns the tokens and the fingerprints
+    of a few weight leaves too."""
     import numpy as np
 
     from ray_tpu_torch.llm import (LLMConfig, LLMEngine, ModelLoadingConfig,
@@ -704,13 +767,16 @@ def serve(torch, kernels, family: str = "llama", model_id: str = "8b",
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     try:
+        fingerprints = weight_fingerprints(torch, eng.params)
         rng = np.random.default_rng(SEED + 1)
         prompts = [rng.integers(0, eng.cfg.vocab_size, size=n).tolist()
                    for n in lengths]
         params = SamplingParams(max_tokens=32, temperature=0.0)
+        gate = hold_admission(eng)
         zero(kernels)  # the main path starts here
         t0 = time.perf_counter()
         reqs = [eng.submit(p, params) for p in prompts]
+        gate.set()
         outs = [list(r) for r in reqs]
         wall = time.perf_counter() - t0
         launches = counts(kernels)
@@ -745,7 +811,8 @@ def serve(torch, kernels, family: str = "llama", model_id: str = "8b",
             "decode_step_ms_mean": 1e3 * st["decode_seconds"] / steps,
             "decode_steps": steps, "decode_occupancy": st["decode_occupancy"],
             "tokens_per_s": sum(len(o) for o in outs) / wall,
-            "launches": launches}
+            "launches": launches, "tokens": outs,
+            "fingerprints": fingerprints}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -1780,6 +1847,300 @@ def serve_pd(torch, kernels, card: str, cfg, params) -> dict:
             "monolithic": {"wall_s": mono_wall, "stats": st}}
 
 
+# ----------------------------------------------------------------- phase 13
+
+RT_FLASH = dict(B=1, T=1024, D=128, H=32, Hkv=8)  # 13b's flash forward
+RT_SEED = SEED + 13
+RT_BYTES = 256 << 20    # 13e's put/get payload
+
+
+def kernel_inputs(torch, seed: int):
+    """13b's seeded inputs, made the same way on the worker and the driver:
+    the flash forward at [1,32,1024,128] causal and phase 2's ragged case."""
+    c = RT_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    qkv = [torch.randn((c["B"], c["T"], h, c["D"]), generator=gen, device=dev,
+                       dtype=torch.bfloat16).transpose(1, 2)
+           for h in (c["H"], c["Hkv"], c["Hkv"])]
+    return qkv, ragged_inputs(torch, gen)
+
+
+def worker_kernels(seed: int, prepare=None) -> dict:
+    """13b, in a num_gpus=1 task: both serving kernels on seeded inputs; the
+    CUDA outputs go back through the object store with the worker's own
+    launch counts, the GPUs it sees, and the kernels nvcc had to build in
+    this process (none when it loads the driver's build)."""
+    import os
+
+    import torch
+
+    if prepare is not None:
+        prepare()
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+    built = _build.build_all([fa.KERNEL.source, ra.KERNEL.source])
+    kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+    (q, k, v), (rq, kp, vp, tbl, pos) = kernel_inputs(torch, seed)
+    zero(kernels)
+    o, lse = fa._fwd_call(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+    out = ra.ragged_decode_attention(rq, kp, vp, tbl[:, :32], pos,
+                                     scale=rq.shape[-1] ** -0.5)
+    torch.cuda.synchronize()
+    return {"o": o, "lse": lse, "ragged": out, "launches": counts(kernels),
+            "nvcc_built": sorted(built),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "device_count": torch.cuda.device_count(),
+            "device_name": torch.cuda.get_device_name(0)}
+
+
+def runtime_checks(torch, rt, card: str, phase4: dict, prepare=None) -> dict:
+    """Phase 13: the port's runtime on the card. 13a resources, 13b the two
+    serving kernels in a GPU task (CUDA tensors back through the store),
+    13c phase 4's serve() in a num_gpus=1 actor, token-exact to phase 4,
+    13d GPU accounting, 13e numbers; then shutdown leaves no worker and no
+    shm segment of the session."""
+    import glob
+
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t0 = time.perf_counter()
+    info = rt.init(num_cpus=4)
+    init_s = time.perf_counter() - t0
+    sid = info["session_id"]
+    node = rt._private.api._node
+    out = {"init_s": init_s, "session": sid}
+    try:
+        # 13a: resources
+        res = rt.cluster_resources()
+        out["cluster_resources"] = res
+        if res.get("GPU") != torch.cuda.device_count():
+            fail(f"13a: cluster GPU {res.get('GPU')} != "
+                 f"{torch.cuda.device_count()} visible to the driver")
+
+        # 13e: a GPU worker's boot (spawn, register, run a task that imports
+        # nothing), then the same worker's first torch import and CUDA
+        # context (13a's task), then a no-op GPU task's round trip
+        @rt.remote(num_gpus=1)
+        def noop():
+            return None
+
+        t0 = time.perf_counter()
+        rt.get(noop.remote(), timeout=300)
+        out["gpu_worker_boot_s"] = time.perf_counter() - t0
+
+        @rt.remote(num_gpus=1)
+        def gpu_env():
+            import os
+
+            import torch
+
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    rt.get_runtime_context().get_accelerator_ids()["GPU"],
+                    torch.cuda.device_count())
+
+        @rt.remote
+        def cpu_env():
+            import os
+
+            import torch
+
+            return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.cuda.is_available())
+
+        t0 = time.perf_counter()
+        visible, grant, n_dev = rt.get(gpu_env.remote(), timeout=300)
+        out["gpu_worker_torch_cuda_s"] = time.perf_counter() - t0
+        if visible != ",".join(grant) or n_dev != 1:
+            fail(f"13a: a num_gpus=1 task sees CUDA_VISIBLE_DEVICES="
+                 f"{visible!r} for grant {grant} and {n_dev} devices")
+        cpu_visible, cpu_cuda = rt.get(cpu_env.remote(), timeout=300)
+        if cpu_cuda or cpu_visible != "":
+            fail(f"13a: a CPU task sees CUDA (CUDA_VISIBLE_DEVICES="
+                 f"{cpu_visible!r}, is_available {cpu_cuda})")
+        out["13a"] = {"gpu_task": [visible, grant, n_dev],
+                      "cpu_task": [cpu_visible, cpu_cuda]}
+
+        t0 = time.perf_counter()
+        for _ in range(50):
+            rt.get(noop.remote(), timeout=120)
+        out["gpu_task_roundtrip_ms"] = (time.perf_counter() - t0) / 50 * 1e3
+
+        # 13b: the kernels in a worker, CUDA tensors through the store
+        got = rt.get(rt.remote(num_gpus=1)(worker_kernels).remote(
+            RT_SEED, prepare), timeout=600)
+        for key in ("o", "lse", "ragged"):
+            t = got[key]
+            if not (isinstance(t, torch.Tensor) and t.is_cuda):
+                fail(f"13b: {key} came back as {type(t).__name__} on "
+                     f"{getattr(t, 'device', None)}, not a CUDA tensor")
+        if got["o"].dtype != torch.bfloat16 or got["ragged"].dtype != \
+                torch.bfloat16:
+            fail(f"13b: dtypes {got['o'].dtype}, {got['ragged'].dtype}")
+        (q, k, v), (rq, kp, vp, tbl, pos) = kernel_inputs(torch, RT_SEED)
+        o_ref, lse_ref = fa.flash_attention_forward_plain(
+            q.float(), k.float(), v.float(), causal=True,
+            scale=q.shape[-1] ** -0.5)
+        o_ref = o_ref.to(torch.bfloat16).float()
+        r_ref = ra.ragged_decode_attention_reference(
+            rq, kp, vp, tbl[:, :32], pos, scale=rq.shape[-1] ** -0.5).float()
+        errs = {"flash_o": (got["o"].float() - o_ref).abs().max().item(),
+                "flash_lse": (got["lse"] - lse_ref).abs().max().item(),
+                "ragged": (got["ragged"].float() - r_ref).abs().max().item()}
+        if not (torch.allclose(got["o"].float(), o_ref, atol=ATOL, rtol=RTOL)
+                and errs["flash_lse"] <= LSE_TOL
+                and torch.allclose(got["ragged"].float(), r_ref, atol=ATOL,
+                                   rtol=RTOL)):
+            fail(f"13b: the worker's kernels disagree with the plain "
+                 f"versions: {errs}")
+        want = {fa.KERNEL.symbol: 1, ra.KERNEL.symbol: 1,
+                fa.KERNEL_DKV.symbol: 0, fa.KERNEL_DQ.symbol: 0}
+        if got["launches"] != want:
+            fail(f"13b: worker launches {got['launches']} != {want}")
+        out["13b"] = {"max_abs_err": errs, "launches": got["launches"],
+                      "nvcc_built_in_worker": got["nvcc_built"],
+                      "worker_sees": [got["visible"], got["device_count"],
+                                      got["device_name"]]}
+        print(f"13b: the GPU worker {'ran nvcc for ' + str(got['nvcc_built']) if got['nvcc_built'] else 'loaded the driver build (no nvcc)'}",
+              flush=True)
+        del got, q, k, v, rq, kp, vp, tbl, pos, o_ref, lse_ref, r_ref
+
+        # 13e: put/get of a CPU and a CUDA tensor, three times each: the
+        # first put into fresh arena space faults its tmpfs pages in
+        for where in ("cpu", "cuda"):
+            x = torch.ones(RT_BYTES // 4, dtype=torch.float32,
+                           device=torch.device(where))
+            rates = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = rt.put(x)
+                put_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                y = rt.get(ref)
+                torch.cuda.synchronize()
+                get_s = time.perf_counter() - t0
+                if y.device.type != where or not torch.equal(y, x):
+                    fail(f"13e: a {where} tensor came back on {y.device} "
+                         "or changed")
+                rates.append((RT_BYTES / put_s / 1e9,
+                              RT_BYTES / get_s / 1e9))
+                del y, ref
+            out[f"put_get_{where}_GBps"] = rates
+            del x
+
+        # 13c: phase 4's serve() in a num_gpus=1 actor
+        @rt.remote(num_gpus=1)
+        class Server:
+            def ready(self):
+                return os.getpid()
+
+            def serve(self):
+                import torch
+
+                if prepare is not None:
+                    prepare()
+                from ray_tpu_torch.ops import _build
+                from ray_tpu_torch.ops import flash_attention as fa
+                from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+                built = _build.build_all([fa.KERNEL.source,
+                                          ra.KERNEL.source])
+                try:
+                    res = serve(torch, [fa.KERNEL, fa.KERNEL_DKV,
+                                        fa.KERNEL_DQ, ra.KERNEL])
+                except SystemExit as e:  # fail() in the worker: re-raised
+                    raise RuntimeError(str(e)) from None
+                res["nvcc_built"] = sorted(built)
+                return res
+
+        # on the warm GPU worker 13b left idle; serve() twice: the first
+        # run is the process's first model work, the second a warm one
+        t0 = time.perf_counter()
+        first = Server.remote()
+        rt.get(first.ready.remote(), timeout=300)
+        out["gpu_actor_start_s"] = time.perf_counter() - t0
+        runs = []
+        for run in ("first", "second"):
+            actor = rt.get(first.serve.remote(), timeout=900)
+            if actor["fingerprints"] != phase4["fingerprints"]:
+                fail(f"13c: the actor's weights differ from phase 4's: "
+                     f"{actor['fingerprints']} vs {phase4['fingerprints']}")
+            if actor["tokens"] != phase4["tokens"]:
+                diff = [i for i, (a, b) in enumerate(zip(actor["tokens"],
+                                                         phase4["tokens"]))
+                        if a != b]
+                fail(f"13c: the actor's {run} run's tokens differ from "
+                     f"phase 4's in requests {diff}")
+            runs.append({k: actor[k] for k in (
+                "prefill_ms_mean", "decode_step_ms_mean", "decode_steps",
+                "tokens_per_s", "engine_build_s", "launches",
+                "nvcc_built")})
+        out["13c"] = {"first": runs[0], "second": runs[1],
+                      "launches": runs[0]["launches"],
+                      "phase4_prefill_ms_mean": phase4["prefill_ms_mean"],
+                      "phase4_decode_step_ms_mean":
+                          phase4["decode_step_ms_mean"]}
+
+        # 13d: one card, one num_gpus=1 actor at a time
+        second = Server.remote()
+        ready = second.ready.remote()
+        try:
+            rt.get(ready, timeout=5)
+            fail("13d: a second num_gpus=1 actor started while the first "
+                 "held the only GPU")
+        except rt.exceptions.GetTimeoutError:
+            pass
+        t0 = time.perf_counter()
+        rt.kill(first)
+        rt.get(ready, timeout=300)
+        out["second_gpu_actor_after_kill_s"] = time.perf_counter() - t0
+        rt.kill(second)
+        out["13d"] = "second GPU actor waited, started after kill(first)"
+        pids = [p.pid for p in node._procs]
+        # the session's segments carry the port's prefix only (another
+        # process's rtpu_ sessions on this host are not ours to judge)
+        out["session_segments_live"] = len(glob.glob(f"/dev/shm/rtpt_{sid}*"))
+        wrong = glob.glob(f"/dev/shm/rtpu_{sid}*")
+        if wrong:
+            fail(f"13: the port's session made rtpu_ segments: {wrong}")
+    finally:
+        rt.shutdown()
+    # after shutdown: no worker and no segment of the session
+    deadline = time.monotonic() + 30
+    alive = pids
+    while alive and time.monotonic() < deadline:
+        alive = [p for p in pids if os.path.exists(f"/proc/{p}")
+                 and "zombie" not in open(f"/proc/{p}/status").read().lower()]
+        time.sleep(0.1)
+    if alive:
+        fail(f"13: worker processes {alive} outlived shutdown()")
+    left = (glob.glob(f"/dev/shm/rtpt_{sid}*")
+            + glob.glob(f"/dev/shm/rtpu_{sid}*"))
+    if left:
+        fail(f"13: shm segments of the session left: {left}")
+    out["workers_spawned"] = len(pids)
+    c = out["13c"]
+    print(f"runtime on {card}: init {out['init_s']:.3f} s, GPU worker boot "
+          f"{out['gpu_worker_boot_s']:.3f} s (+ torch and CUDA "
+          f"{out['gpu_worker_torch_cuda_s']:.3f} s), no-op GPU task "
+          f"{out['gpu_task_roundtrip_ms']:.3f} ms; put/get 256 MiB (GB/s, "
+          f"3 rounds) cpu {out['put_get_cpu_GBps']}, cuda "
+          f"{out['put_get_cuda_GBps']}; actor prefill "
+          f"{c['first']['prefill_ms_mean']:.3f} / "
+          f"{c['second']['prefill_ms_mean']:.3f} ms (first / second run; "
+          f"phase 4 {phase4['prefill_ms_mean']:.3f}), decode step "
+          f"{c['first']['decode_step_ms_mean']:.3f} / "
+          f"{c['second']['decode_step_ms_mean']:.3f} ms (phase 4 "
+          f"{phase4['decode_step_ms_mean']:.3f})", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -2189,7 +2550,8 @@ def main() -> int:
                 "serve_gpt2": {}, "vit": {},
                 **{f"engine_{r}": {} for r in ENGINE_RUNS},
                 "pd_monolithic": {}, "pd_handoff": {},
-                "pd_coalesced_prefill": {},
+                "pd_coalesced_prefill": {}, "worker_kernels": {},
+                "actor_serve": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -2269,6 +2631,14 @@ def main() -> int:
             launches[path] = pd[path]
         del params8b
         torch.cuda.empty_cache()
+        # phase 13: the runtime on the card, after the driver's Llama-3-8B
+        # copy is gone and before phase 11
+        import ray_tpu_torch
+
+        runtime = runtime_checks(torch, ray_tpu_torch, card, serving)
+        launches["worker_kernels"] = runtime["13b"]["launches"]
+        launches["actor_serve"] = runtime["13c"]["launches"]
+        print(json.dumps({"card": card, "runtime": runtime}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

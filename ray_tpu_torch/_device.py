@@ -1,8 +1,18 @@
-"""Device resolution: CUDA by default, the CPU only when asked for."""
+"""Device resolution: CUDA by default, the CPU only when asked for.
+
+Every subpackage that computes (ops, models, llm, train, parallel,
+benchmarks) imports this module first, so the port's numerics settings
+below hold before any of its matmuls run. The runtime (``init``/``remote``
+and the rest) does not import torch.
+"""
 
 from __future__ import annotations
 
 import torch
+
+# the port's reference numerics are full f32: no TF32 in matmuls or convs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device=None) -> torch.device:

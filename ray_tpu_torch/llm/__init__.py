@@ -2,6 +2,8 @@
 ray_tpu.llm's engine) and the PD plane below Serve (kv_transfer, pd); the
 serve layer above them is not ported yet."""
 
+from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
+
 from ray_tpu_torch.llm.config import (LLMConfig, LoraConfig,
                                       ModelLoadingConfig, PDConfig)
 from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams

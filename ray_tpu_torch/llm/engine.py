@@ -71,6 +71,7 @@ import dataclasses
 import hashlib
 import itertools
 import queue
+import sys
 import threading
 import time
 
@@ -87,11 +88,6 @@ from ray_tpu_torch.ops import flash_attention
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import (MESH_AXIS_TP, axis_rank,
                                          mesh_shape, use_mesh)
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet; see ROADMAP.md Queue 1")
 
 
 @dataclasses.dataclass
@@ -142,6 +138,22 @@ class _Request:
 
 
 _SENTINEL = object()
+
+
+def _rebuilt_error(msg: str) -> BaseException:
+    """The exception tp rank 0 met on a stream, rebuilt on another rank
+    from its class path and message (one line each): the same class,
+    looked up among the loaded modules, built from the message, or a
+    RuntimeError naming the class when it cannot be."""
+    path, _, text = msg.partition("\n")
+    mod, _, name = path.rpartition(".")
+    cls = getattr(sys.modules.get(mod), name, None)
+    if isinstance(cls, type) and issubclass(cls, BaseException):
+        try:
+            return cls(text)
+        except Exception:  # noqa: BLE001 — a class not built from a message
+            pass
+    return RuntimeError(f"{name}: {text}")
 
 
 class _EngineError:
@@ -651,13 +663,16 @@ class LLMEngine:
 
         The caller already holds ``first_token`` (it counts against
         max_tokens); the request yields the tokens after it.
+
+        Under ``mesh=`` every rank submits the same request with the full
+        K/V (all n_kv_heads heads), as with ``submit``; each rank keeps its
+        own n_kv_heads/tp heads, the split ``shard_params_tp`` makes of
+        wk/wv. A stream has one reader: tp rank 0's stream is read, and
+        each page it delivers reaches every rank through the tp group.
+        The other ranks pass a stream of the same ``n_pages`` and
+        ``page_size`` that nothing needs to feed.
         """
         self._check_alive()
-        if self.mesh is not None:
-            # a tp rank's pool holds Hkv/tp heads, and a ticket's channel
-            # has one reader: no faithful split of a transfer across ranks
-            raise _not_ported("submit_prefilled under mesh= (PD on a "
-                              "tensor-parallel engine)")
         params = params or SamplingParams()
         paged_form = k_pages is not None or v_pages is not None
         if kv_stream is not None:
@@ -1037,20 +1052,37 @@ class LLMEngine:
 
     # ------------------------------------------------------- PD admission
 
-    def _pool_tensor(self, x) -> torch.Tensor:
-        """A transferred host array or tensor on the cache's device and
-        dtype: one host-to-device copy."""
+    def _pool_dtype(self) -> torch.dtype:
+        return self.state["k" if self.kv_layout == "slot" else "kp"].dtype
+
+    def _pool_tensor(self, x, local: bool = False) -> torch.Tensor:
+        """A transferred host array or tensor ([L, T, Hkv, Dh], a whole
+        prefix or one page) on the cache's device and dtype: one
+        host-to-device copy. Under a mesh, this rank's contiguous
+        n_kv_heads/tp heads of it; `local`: x holds only those heads
+        already (a streamed page scattered from tp rank 0)."""
         t = x if isinstance(x, torch.Tensor) else torch.as_tensor(
             np.asarray(x))
-        dt = self.state["k" if self.kv_layout == "slot" else "kp"].dtype
-        return t.to(self.device, dt)
+        if self.mesh is not None:
+            hkv = self.cfg.kv_heads
+            n = hkv // mesh_shape(self.mesh)[MESH_AXIS_TP]
+            want = n if local else hkv
+            if t.dim() != 4 or t.shape[2] != want:
+                raise ValueError(
+                    f"under mesh= every rank takes the full transferred KV "
+                    f"([L, T, {hkv}, Dh]), got shape {tuple(t.shape)}")
+            if not local:
+                r = axis_rank(self.mesh, MESH_AXIS_TP)
+                t = t[:, :, r * n:(r + 1) * n]
+        return t.to(self.device, self._pool_dtype())
 
-    def _adopt_pages(self, pages: list, items) -> None:
+    def _adopt_pages(self, pages: list, items, local: bool = False) -> None:
         """Write transferred (index, k_page, v_page) items into the granted
         pool `pages` (write_kv_pages, one [L, P, Hkv, Dh] page at a time)."""
         for i, kp, vp in items:
-            dp.write_kv_pages(self.state, {"k": self._pool_tensor(kp),
-                                           "v": self._pool_tensor(vp)},
+            dp.write_kv_pages(self.state,
+                              {"k": self._pool_tensor(kp, local),
+                               "v": self._pool_tensor(vp, local)},
                               [pages[i]])
 
     def _grant_transferred(self, req: _Request, slot: int,
@@ -1075,12 +1107,13 @@ class LLMEngine:
                          pack["first_token"])
         self._bind_slot(req, slot, pack["length"])
 
-    def _insert_transferred(self, req: _Request, slot: int) -> bool:
+    def _insert_transferred(self, req: _Request, slot: int,
+                            local: bool = False) -> bool:
         """Insert a kv_pack from a prefill elsewhere. Pages on the paged
         layout are adopted into granted pool pages; whole arrays, and pages
         on the slot layout (assembled on the host), take _insert. False
         when the pool cannot host the sequence now (the caller
-        backlogs)."""
+        backlogs). `local`: see _pool_tensor."""
         pack = req.kv_pack
         if "k_pages" in pack:
             if self.kv_layout == "paged":
@@ -1089,7 +1122,7 @@ class LLMEngine:
                     return False
                 self._adopt_pages(self._slot_pages[slot],
                                   zip(itertools.count(), pack["k_pages"],
-                                      pack["v_pages"]))
+                                      pack["v_pages"]), local)
                 self._activate_transferred(req, slot)
                 return True
             # the slot layout has no page pool: assemble the bucket
@@ -1098,7 +1131,7 @@ class LLMEngine:
                   for name in ("k", "v")}
         else:
             kv = {"k": pack["k"], "v": pack["v"]}
-        kv = {name: self._pool_tensor(x) for name, x in kv.items()}
+        kv = {name: self._pool_tensor(x, local) for name, x in kv.items()}
         return self._insert(req, slot, kv, pack["length"],
                             pack["first_token"])
 
@@ -1134,19 +1167,20 @@ class LLMEngine:
         granted pages, and activate the rows whose last page landed. Runs
         between decode steps. True if anything moved."""
         progressed = False
-        for req in list(self._streaming):
+        local = self.mesh is not None  # _take_streamed scatters the heads
+        for req, (err, ready) in zip(list(self._streaming),
+                                     self._take_streamed()):
             st = req.kv_stream
-            err = st.take_error()
             if err is not None:
                 self._fail_stream(req, err)
                 progressed = True
                 continue
             try:
-                ready = st.take_ready()
                 if ready:
                     progressed = True
                     if self.kv_layout == "paged":
-                        self._adopt_pages(self._slot_pages[req.slot], ready)
+                        self._adopt_pages(self._slot_pages[req.slot], ready,
+                                          local)
                     else:
                         # the slot layout has no page pool: buffer, then
                         # assemble at completion
@@ -1163,7 +1197,7 @@ class LLMEngine:
                         self._activate_transferred(req, req.slot)
                     else:
                         req.kv_stream = None
-                        self._insert_transferred(req, req.slot)
+                        self._insert_transferred(req, req.slot, local)
                     progressed = True
             except Exception as e:  # noqa: BLE001 — a malformed page must
                 # fail THIS request, not the scheduler (engine death would
@@ -1171,6 +1205,89 @@ class LLMEngine:
                 self._fail_stream(req, e)
                 progressed = True
         return progressed
+
+    def _read_stream(self, st, stacked: bool = False):
+        """(error or None, ready pages) of one stream. `stacked`: each page
+        as (index, one [2, L, P, Hkv, Dh] tensor in the pool's dtype on the
+        engine's device), its shape checked: a malformed page fails the
+        request."""
+        err = st.take_error()
+        if err is not None:
+            return err, []
+        ready = st.take_ready()
+        if not stacked:
+            return None, ready
+        cfg = self.cfg
+        want = (2, cfg.n_layers, st.page_size, cfg.kv_heads, cfg.head_dim)
+        pages = []
+        try:
+            for i, kp, vp in ready:
+                pair = torch.stack([torch.as_tensor(kp), torch.as_tensor(vp)])
+                if tuple(pair.shape) != want:
+                    raise ValueError(f"transferred page has shape "
+                                     f"{tuple(pair.shape[1:])}, expected "
+                                     f"{want[1:]}")
+                pages.append((int(i), pair.to(self.device, self._pool_dtype())))
+        except Exception as e:  # noqa: BLE001 — fails this request only
+            return e, []
+        return None, pages
+
+    def _take_streamed(self) -> list:
+        """(error or None, ready pages) for each streamed admission, in
+        ``_streaming``'s order. Under a mesh tp rank 0 reads its streams
+        and the other ranks get what it read through the tp group: a header
+        (per request: failed, pages, message bytes), the page indices, the
+        failures (class and message), then each page, of which every rank
+        receives only its own n_kv_heads/tp heads ([2, L, P, Hkv/tp, Dh],
+        one scatter a page). ``_streaming`` is the same on every rank
+        (admission is agreed), so every rank issues the same collectives,
+        and a failed stream fails with the same exception class on every
+        rank."""
+        reqs = list(self._streaming)
+        if self.mesh is None:
+            return [self._read_stream(req.kv_stream) for req in reqs]
+        root = axis_rank(self.mesh, MESH_AXIS_TP) == 0
+
+        def from_root(values: list, n: int) -> list:
+            t = torch.tensor(values if root else [0] * n, dtype=torch.int64,
+                             device=self.device)
+            return (collectives.broadcast(t, MESH_AXIS_TP, root=0).tolist()
+                    if n else [])
+
+        taken = [self._read_stream(req.kv_stream, stacked=True) if root
+                 else (None, []) for req in reqs]
+        msgs = [b"" if e is None else
+                f"{type(e).__module__}.{type(e).__qualname__}\n{e}".encode()
+                for e, _ in taken]
+        head = from_root([x for (e, p), m in zip(taken, msgs)
+                          for x in (e is not None, len(p), len(m))],
+                         3 * len(reqs))
+        failed, counts, sizes = head[0::3], head[1::3], head[2::3]
+        idx = iter(from_root([i for _, p in taken for i, _ in p],
+                             sum(counts)))
+        blob = bytes(from_root(list(b"".join(msgs)), sum(sizes)))
+        cfg, dt = self.cfg, self._pool_dtype()
+        tp = mesh_shape(self.mesh)[MESH_AXIS_TP]
+        out, pos = [], 0
+        for req, (err, pages), bad, n, m in zip(reqs, taken, failed, counts,
+                                                sizes):
+            msg, pos = blob[pos:pos + m].decode(), pos + m
+            if bad:
+                out.append((err if root else _rebuilt_error(msg), []))
+                continue
+            # [tp, 2, L, P, Hkv/tp, Dh]: rank j's heads are chunk j; off
+            # root, a template that holds no page
+            shape = (tp, 2, cfg.n_layers, req.kv_stream.page_size,
+                     cfg.kv_heads // tp, cfg.head_dim)
+            ready = []
+            for k in range(n):
+                chunks = (pages[k][1].unflatten(3, (tp, shape[4]))
+                          .movedim(3, 0) if root else torch.empty(
+                              (), dtype=dt, device=self.device).expand(shape))
+                pair = collectives.scatter(chunks, MESH_AXIS_TP, root=0)
+                ready.append((next(idx), pair[0], pair[1]))
+            out.append((None, ready))
+        return out
 
     def _admit_cached(self, req: _Request, slot: int):
         """Paged admission with hash-block prefix reuse and/or chunking.

@@ -1,3 +1,4 @@
+from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
 from ray_tpu_torch.models import (convert, decoding, decoding_paged,
                                   transformer, vit)
 from ray_tpu_torch.models.gpt2 import gpt2_config

@@ -1,3 +1,4 @@
+from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
 from ray_tpu_torch.ops.activations import geglu, gelu, swiglu
 from ray_tpu_torch.ops.attention import attention, reference_attention, repeat_kv
 # the flash_attention *function* stays in its module: exporting it here

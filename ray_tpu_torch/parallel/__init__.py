@@ -9,6 +9,8 @@ host; ``dryrun`` (imported as a submodule) is the twin of
 ``__graft_entry__.dryrun_multichip``.
 """
 
+from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
+
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.launch import launch
 from ray_tpu_torch.parallel.mesh import (

@@ -273,6 +273,20 @@ def broadcast(x, axis_name, *, root: int = 0):
     return allreduce(torch.where(is_root, x, torch.zeros_like(x)), axis_name)
 
 
+def scatter(x, axis_name, *, root: int = 0):
+    """Axis index j gets root's x[j] (x: [axis size, ...] on root; on the
+    other members x only gives the shape and dtype). One all_to_all_single
+    in which only root sends. Not differentiable."""
+    n, me = axis_size(axis_name), axis_index(axis_name)
+    numel = x[0].numel()
+    ins = [numel] * n if me == root else [0] * n
+    outs = [0] * n
+    outs[root] = numel
+    src = x if me == root else x.new_empty((0,))
+    return _all_to_all(src, _group(axis_name), outs, ins,
+                       numel).reshape(x.shape[1:])
+
+
 def ring_permute(x, axis_name, *, shift: int = 1):
     """Send x to axis index (i + shift) % n and receive from (i - shift) % n:
     one all_to_all_single with a single non-empty chunk each way."""

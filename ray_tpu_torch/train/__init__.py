@@ -5,6 +5,8 @@ device planes of ``zero.py``; the model's loss is
 ``ray_tpu_torch.models.transformer.loss_fn``.
 """
 
+from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
+
 from ray_tpu_torch.train import zero
 from ray_tpu_torch.train.optim import (AdamWInt8, adamw, adamw_int8,
                                        optimizer_state_bytes, param_leaves)

@@ -6,7 +6,8 @@ package trains with:
 - ``adamw``: ``torch.optim.AdamW`` over the param leaves with optax's
   defaults. The update is the same as optax.adamw's: bias-corrected
   moments, eps added to sqrt(v_hat), and decoupled weight decay applied to
-  the params as they were before the step.
+  the params as they were before the step. The rate is a float or, as in
+  optax, a schedule of the step count.
 - ``AdamWInt8`` / ``adamw_int8``: AdamW whose two moments live in int8 with
   one f32 absmax scale per block of 256 (the 8-bit-Adam recipe), ~2.06
   bytes of state per param instead of 8.
@@ -26,18 +27,41 @@ def param_leaves(params) -> list[torch.Tensor]:
     return [params]
 
 
-def adamw(params, learning_rate: float, b1: float = 0.9, b2: float = 0.999,
+class ScheduledAdamW(torch.optim.AdamW):
+    """``torch.optim.AdamW`` whose rate is ``schedule(count)``, read before
+    each step at the count of steps already taken, as optax evaluates a
+    schedule (so the first step uses ``schedule(0)``). The count is kept in
+    every param group, so it travels with ``state_dict()``."""
+
+    def __init__(self, params, schedule, **kwargs):
+        super().__init__(params, lr=float(schedule(0)), **kwargs)
+        self._schedule = schedule
+        for group in self.param_groups:
+            group.setdefault("schedule_count", 0)
+
+    def step(self, closure=None):
+        for group in self.param_groups:
+            group["lr"] = float(self._schedule(group["schedule_count"]))
+            group["schedule_count"] += 1
+        return super().step(closure)
+
+
+def adamw(params, learning_rate, b1: float = 0.9, b2: float = 0.999,
           eps: float = 1e-8, weight_decay: float = 1e-4) -> torch.optim.AdamW:
     """``torch.optim.AdamW`` over the leaves of `params` with optax.adamw's
-    defaults (weight_decay 1e-4). Marks the leaves as requiring grad. On
-    CUDA it uses PyTorch's fused update (one launch for all leaves)."""
+    defaults (weight_decay 1e-4). `learning_rate` is a float or a callable
+    of the step count (a schedule, as optax takes; ``ScheduledAdamW``).
+    Marks the leaves as requiring grad. On CUDA it uses PyTorch's fused
+    update (one launch for all leaves)."""
     leaves = param_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     fused = all(p.is_cuda for p in leaves)
-    return torch.optim.AdamW(leaves, lr=learning_rate, betas=(b1, b2),
-                             eps=eps, weight_decay=weight_decay,
-                             fused=fused or None)
+    kwargs = dict(betas=(b1, b2), eps=eps, weight_decay=weight_decay,
+                  fused=fused or None)
+    if callable(learning_rate):
+        return ScheduledAdamW(leaves, learning_rate, **kwargs)
+    return torch.optim.AdamW(leaves, lr=learning_rate, **kwargs)
 
 
 def _quantize(x: torch.Tensor, block: int):

@@ -226,6 +226,34 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.llm.kv_transfer, ray_tpu_torch.llm.pd\n"
         "import ray_tpu_torch.experimental.channel.mutable_shm\n"
         "import ray_tpu_torch.util.metrics, ray_tpu_torch._private.constants\n"
+        "import ray_tpu_torch._private.api, ray_tpu_torch._private.gcs\n"
+        "import ray_tpu_torch._private.node, ray_tpu_torch._private.worker\n"
+        "import ray_tpu_torch._private.worker_main\n"
+        "import ray_tpu_torch._private.actor_executor\n"
+        "import ray_tpu_torch._private.direct, ray_tpu_torch._private.local_mode\n"
+        "import ray_tpu_torch._private.accelerators, ray_tpu_torch._private.ids\n"
+        "import ray_tpu_torch._private.serialization\n"
+        "import ray_tpu_torch._private.object_store\n"
+        "import ray_tpu_torch._private.shm_arena\n"
+        "import ray_tpu_torch._private.object_transfer\n"
+        "import ray_tpu_torch._private.protocol, ray_tpu_torch._private.pubsub\n"
+        "import ray_tpu_torch._private.events\n"
+        "import ray_tpu_torch._private.task_events\n"
+        "import ray_tpu_torch._private.gcs_storage\n"
+        "import ray_tpu_torch._private.task_spec\n"
+        "import ray_tpu_torch._private.pg_policy\n"
+        "import ray_tpu_torch._private.fixed_point\n"
+        "import ray_tpu_torch._private.procutil, ray_tpu_torch._private.poll\n"
+        "import ray_tpu_torch._private.ray_config\n"
+        "import ray_tpu_torch._private.log_monitor\n"
+        "import ray_tpu_torch._private.memory_monitor\n"
+        "import ray_tpu_torch._private.runtime_env_container\n"
+        "import ray_tpu_torch.remote_function, ray_tpu_torch.actor\n"
+        "import ray_tpu_torch.runtime_env, ray_tpu_torch.cross_lang\n"
+        "import ray_tpu_torch.util.placement_group\n"
+        "import ray_tpu_torch.util.scheduling_strategies\n"
+        "import ray_tpu_torch.util.state, ray_tpu_torch.util.actor_pool\n"
+        "import ray_tpu_torch.util.tracing\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

@@ -5,8 +5,12 @@ adapter (twins of tests/test_llm_paged.py's tensor-parallel tests): slot
 and paged layouts with a concurrent batch, the prefix cache with chunked
 prefill, speculative decoding, LoRA, an abort and an expired deadline
 (tokens and counters); and against the unmeshed LLMEngine. PD admission
-(``submit_prefilled``) is refused under the mesh.
+(``submit_prefilled``) under the mesh in its three forms: every rank
+takes the same full K/V, and a stream is read by tp rank 0 alone.
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -108,6 +112,96 @@ def _tcfg():
     return ttr.TransformerConfig(**TINY, dtype=torch.float32)
 
 
+# PD admission: three prefilled prompts (1, 4 and 8 pages of 8 tokens)
+PD_PROMPTS = [PROMPTS[0], PROMPTS[2], PROMPTS[3]]
+PD_FORMS = ("whole", "pages", "stream")
+
+
+def _handoffs(tparams):
+    """The prefill side, run once: each PD prompt's full K/V [L, bucket,
+    Hkv, Dh] (numpy) and greedy first token from the unmeshed port model.
+    Every engine (each rank, the unmeshed one, TPUEngine) is handed these
+    same arrays."""
+    from ray_tpu_torch.llm.engine import bucket_for
+    from ray_tpu_torch.models import decoding
+
+    out = []
+    for prompt in PD_PROMPTS:
+        n = len(prompt)
+        padded = torch.zeros((1, bucket_for(n, 8, 64)), dtype=torch.int64)
+        padded[0, :n] = torch.as_tensor(prompt)
+        logits, kv = decoding.prefill(tparams, padded, n, _tcfg())
+        out.append({"k": kv["k"].numpy(), "v": kv["v"].numpy(), "length": n,
+                    "first_token": int(torch.argmax(logits))})
+    return out
+
+
+def _pages(x, page=8):
+    return [x[:, i:i + page] for i in range(0, x.shape[1], page)]
+
+
+def _serve_prefilled(make, SP, stream_cls, layout, form, handoffs, *,
+                     feed=True, fail=False):
+    """Every handoff through `form` of submit_prefilled (the same order on
+    every rank), then one prompt served normally. Streams are fed page by
+    page from a thread after every request is in, when `feed` (under a
+    mesh only tp rank 0's are read); `fail` fails the last stream after its
+    first page instead."""
+    eng = make(**(SLOT if layout == "slot" else PAGED))
+    streams = []
+    try:
+        reqs = []
+        for h in handoffs:
+            kw = dict(length=h["length"], first_token=h["first_token"],
+                      params=SP(max_tokens=8))
+            if form == "whole":
+                reqs.append(eng.submit_prefilled(h["k"], h["v"], **kw))
+            elif form == "pages":
+                reqs.append(eng.submit_prefilled(
+                    k_pages=_pages(h["k"]), v_pages=_pages(h["v"]), **kw))
+            else:
+                st = stream_cls(h["k"].shape[1] // 8, 8)
+                streams.append((st, h))
+                reqs.append(eng.submit_prefilled(kv_stream=st, **kw))
+
+        def feeder():
+            for j, (st, h) in enumerate(streams):
+                for i, (kp, vp) in enumerate(zip(_pages(h["k"]),
+                                                 _pages(h["v"]))):
+                    st.feed(i, kp, vp)
+                    time.sleep(0.005)
+                    if fail and j == len(streams) - 1:
+                        st.fail(ConnectionResetError(
+                            "channel lost mid-transfer"))
+                        break
+                st.finish()
+
+        t = threading.Thread(target=feeder)
+        if feed:
+            t.start()
+        outs = []
+        for req, h in zip(reqs, handoffs):
+            try:
+                outs.append([h["first_token"]] + list(req))
+            except Exception as e:  # noqa: BLE001 — the failed stream's
+                outs.append(f"{type(e).__name__}: {e}")
+        if feed:
+            t.join()
+        outs.append(eng.generate(PROMPTS[1], SP(max_tokens=6)))
+        st = eng.stats()
+    finally:
+        eng.shutdown()
+    return {"outs": outs, "free_pages": st.get("free_pages"),
+            "streaming": st["streaming"], "free_slots": st["free_slots"]}
+
+
+def _port_pd(make, layout, form, handoffs, **kw):
+    from ray_tpu_torch.llm.kv_transfer import KVPageStream
+
+    return _serve_prefilled(make, SamplingParams, KVPageStream, layout, form,
+                            handoffs, **kw)
+
+
 def _serve(make, SP, options, max_tokens):
     """Every prompt submitted at once (the same order on every rank), then
     read back; plus the second prompt alone."""
@@ -131,7 +225,7 @@ def _port_errors():
     return RequestCancelledError, DeadlineExceededError
 
 
-def _tp_rank(jparams):
+def _tp_rank(jparams, handoffs):
     from ray_tpu_torch.parallel import MeshSpec
 
     params = convert.params_from_jax(jparams, _tcfg(), "cpu")
@@ -151,15 +245,13 @@ def _tp_rank(jparams):
     for name in OPTIONS:
         out[name] = _serve_option(make, SamplingParams, name)
     out["cancel"] = _cancel(make, SamplingParams, _port_errors())
-    eng = make(**PAGED)
-    try:  # PD admission is refused under the mesh, before any request
-        page = torch.zeros((2, 8, 2, 16))
-        eng.submit_prefilled(length=3, first_token=1, k_pages=[page],
-                             v_pages=[page])
-    except NotImplementedError as e:
-        out["pd_refusal"] = str(e)
-    finally:
-        eng.shutdown()
+    root = mesh.get_local_rank("tp") == 0
+    for layout in ("slot", "paged"):
+        for form in PD_FORMS:
+            out[f"pd_{layout}_{form}"] = _port_pd(make, layout, form,
+                                                  handoffs, feed=root)
+    out["pd_stream_fail"] = _port_pd(make, "paged", "stream", handoffs,
+                                     feed=root, fail=True)
     return out
 
 
@@ -176,9 +268,14 @@ def tiny():
 
 
 @pytest.fixture(scope="module")
-def world(tiny):
-    return parallel.launch(_tp_rank, 2, args=(tiny[1],), backend="gloo",
-                           device="cpu", timeout=90)
+def handoffs(tiny):
+    return _handoffs(convert.params_from_jax(tiny[1], _tcfg(), "cpu"))
+
+
+@pytest.fixture(scope="module")
+def world(tiny, handoffs):
+    return parallel.launch(_tp_rank, 2, args=(tiny[1], handoffs),
+                           backend="gloo", device="cpu", timeout=90)
 
 
 def _tpu_engine(tiny):
@@ -270,10 +367,35 @@ def test_abort_and_deadline_agreed_across_ranks(tiny, world):
         assert r["cancel"] == want == ref
 
 
-def test_submit_prefilled_under_mesh_is_refused_naming_roadmap(world):
-    """A tp rank's pool holds n_kv_heads / tp heads and a ticket's channel
-    has one reader: PD admission under mesh= raises and names its
-    ROADMAP.md item."""
+@pytest.mark.parametrize("form", PD_FORMS)
+@pytest.mark.parametrize("layout", ["slot", "paged"])
+def test_submit_prefilled_under_mesh_token_exact(tiny, world, handoffs,
+                                                 layout, form):
+    """PD admission on the tp = 2 ranks, every form on both layouts: the
+    same tokens and free pages as TPUEngine on its 2-device tp mesh given
+    the same submit_prefilled arguments, and as the unmeshed LLMEngine."""
+    from ray_tpu.llm.kv_transfer import KVPageStream as JKVPageStream
+
+    want = _serve_prefilled(_tpu_engine(tiny), _jsp, JKVPageStream, layout,
+                            form, handoffs)
+    unmeshed = _port_pd(_unmeshed(tiny), layout, form, handoffs)
+    assert unmeshed == want
+    options = SLOT if layout == "slot" else PAGED
+    assert want["streaming"] == 0
+    assert want["free_slots"] == options["max_slots"]
     for r in world:
-        assert "mesh" in r["pd_refusal"]
-        assert "ROADMAP.md Queue 1" in r["pd_refusal"]
+        assert r[f"pd_{layout}_{form}"] == want
+
+
+def test_submit_prefilled_stream_failure_under_mesh(tiny, world, handoffs):
+    """Rank 0's stream fails after its first page: the request fails on
+    every rank with rank 0's exception class and message, its slot and
+    pages come back on every rank, and the other requests and a later
+    prompt are served as by the unmeshed engine."""
+    want = _port_pd(_unmeshed(tiny), "paged", "stream", handoffs, fail=True)
+    assert want["outs"][2] == "ConnectionResetError: channel lost mid-transfer"
+    for r in world:
+        got = r["pd_stream_fail"]
+        assert got["outs"] == want["outs"]
+        assert (got["free_pages"], got["free_slots"], got["streaming"]) == (
+            want["free_pages"], want["free_slots"], 0)

@@ -88,6 +88,10 @@ def _world_rank(inp):
             y = fn(x)
             g, = torch.autograd.grad((y * torch.tensor(cot)).sum(), x)
             out[name] = (y.detach().numpy(), g.numpy())
+        # scatter from root 1: the others pass a template holding no data
+        src = (torch.tensor(inp["x"][:N]) if r == 1
+               else torch.empty(()).expand(N, 3))
+        out["scatter"] = collectives.scatter(src, "dp", root=1).numpy()
 
     # ring attention over sp = 4, causal and full, with its gradient
     spm = MeshSpec(sp=N).build()
@@ -289,6 +293,12 @@ def test_pipeline_matches_serial(world, label):
         np.testing.assert_allclose(got_b[0], np.asarray(gb)[stage * per:
                                                              (stage + 1) * per],
                                    **TOL)
+
+
+def test_scatter_sends_each_rank_its_row_of_roots_tensor(world):
+    inp, res = world
+    for r, got in enumerate(res):
+        np.testing.assert_array_equal(got["scatter"], inp["x"][r])
 
 
 def test_fsdp_param_sharding_roundtrip(world):

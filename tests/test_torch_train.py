@@ -223,6 +223,43 @@ def test_adamw_int8_matches_jax():
     assert q["m_scale"].numel() == 2 and q["step"] == 3
 
 
+def test_adamw_schedule_matches_optax_linear_schedule():
+    """adamw with a schedule for the rate against optax.adamw with
+    optax.linear_schedule over 5 steps on the same grads: every step's
+    update within 2e-5, and the schedule read at the pre-step count."""
+    rng = np.random.default_rng(11)
+    shapes = {"a": (40,), "b": {"c": (6, 7)}}
+    p0 = jax.tree.map(lambda s: rng.standard_normal(s).astype(np.float32),
+                      shapes, is_leaf=lambda x: isinstance(x, tuple))
+    grads = [jax.tree.map(lambda a: rng.standard_normal(a.shape).astype(
+        np.float32), p0) for _ in range(5)]
+    init, end, n = 1e-2, 1e-3, 4
+
+    def sched(count):  # the port's side: plain Python, no jax
+        return init + (end - init) * min(count, n) / n
+
+    jopt = optax.adamw(optax.linear_schedule(init, end, n), weight_decay=0.1)
+    jparams = jax.tree.map(jnp.asarray, p0)
+    jstate = jopt.init(jparams)
+    tparams = jax.tree.map(lambda a: torch.from_numpy(a.copy()), p0)
+    topt = ttrain.adamw(tparams, sched, weight_decay=0.1)
+    for g in grads:
+        before = {p: _get(tparams, p).detach().clone() for p in _paths(tparams)}
+        updates, jstate = jopt.update(jax.tree.map(jnp.asarray, g), jstate,
+                                      jparams)
+        jparams = optax.apply_updates(jparams, updates)
+        for path in _paths(tparams):
+            _get(tparams, path).grad = torch.from_numpy(_get(g, path))
+        topt.step()
+        for path in _paths(tparams):
+            np.testing.assert_allclose(
+                (_get(tparams, path).detach() - before[path]).numpy(),
+                np.asarray(_get(updates, path)), atol=2e-5, rtol=0,
+                err_msg=str(path))
+    assert [g["schedule_count"] for g in topt.param_groups] == [5]
+    assert topt.param_groups[0]["lr"] == pytest.approx(sched(4))
+
+
 def test_single_device_only_and_measure_needs_the_card():
     """A meshed step needs a DeviceMesh over an initialised process group
     (the meshed steps' parity tests over gloo ranks are in
