@@ -190,6 +190,35 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    ``rtpu_<session>*``; after ``shutdown()`` no worker process and no
    segment of the session under either prefix is left.
 
+14. Llama-3-8B over HTTP from a Serve replica (a new runtime session,
+   after phase 13, before phase 11). ``serve.start(http_port=0)`` and
+   ``serve.run(build_openai_app(LLMConfig(...)), route_prefix="/llm")``:
+   Llama-3-8B at full width, bf16, seed 0, phase 4's engine options, and
+   ``ray_actor_options={"num_gpus": 1}``. The deployment's class is a
+   subclass of the server's, defined here, whose probes read the token ids,
+   launch counts, weight fingerprints and start-up times in the replica.
+   a. The seconds from ``serve.run`` to HEALTHY and to the replica's first
+      passed health probe, split into the replica process's start, its
+      imports, its CUDA context and the model build; the replica's weights
+      equal phase 4's.
+   b. 8 byte-tokenized prompts of phase 4's lengths, one at a time, as
+      ``POST /llm/v1/completions`` (greedy, 32 tokens): token ids (read in
+      the replica), text and token counts equal an in-process
+      ``LLMEngine`` serving each prompt alone on phase 10's weights.
+   c. The same 8 prompts at once plus one SSE stream: each completes with
+      the OpenAI shape and at most 32 tokens (agreement with 14b is
+      reported: batch composition changes bf16 results); then the stream
+      alone, whose chunks join to 14b's text of its prompt and whose ids
+      equal 14b's.
+   d. Launches in the replica over 14b and 14c: flash forward 32 x its
+      prefills, ragged decode 32 x its decode steps, no backward.
+   e. Host-clock times: the lone stream's time to its first chunk, each
+      request's latency, the wave's tokens/s, the replica's prefill and
+      decode-step ms beside phase 4's and 13c's.
+   f. After ``serve.shutdown()`` and ``shutdown()`` no ``rtpt_routes_*``
+      or ``rtpt_chan_*`` segment made during the phase, and no segment of
+      the session, is left.
+
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -197,6 +226,7 @@ The line before last is the ``kernels`` JSON summary; the last line is
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -275,20 +305,37 @@ def device_ms(torch, fn, iters: int, key: str) -> tuple[float, dict]:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name:
-            name = e.name[e.name.index(key):].split("(")[0]
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.time_range.elapsed_us() / 1e3 / iters)
-    if not by_name:
-        fail(f"the profiler saw no device time in kernels named *{key}*")
-    return sum(by_name.values()), by_name
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and key in e.name):
+                name = e.name[e.name.index(key):].split("(")[0]
+                by_name[name] = (by_name.get(name, 0.0)
+                                 + e.time_range.elapsed_us() / 1e3 / iters)
+        if by_name:
+            return sum(by_name.values()), by_name
+    # the profiler traced no kernel of `key` (seen once on the card's
+    # machine): CUDA events around each call, started on an idle device,
+    # which adds the host's gaps between the call's own launches
+    print(f"device_ms: the profiler saw no device time in kernels named "
+          f"*{key}*; timing each call by CUDA events", flush=True)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters, {"cuda_events_per_call": total / iters}
 
 
 def ptxas_summary(logs: dict) -> list[dict]:
@@ -2141,6 +2188,417 @@ def runtime_checks(torch, rt, card: str, phase4: dict, prepare=None) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+
+HTTP_MAX_TOKENS = 32
+HTTP_STREAM_PROMPT = 3          # 14c's SSE stream: the 300-token prompt
+
+
+def http_prompts() -> list[str]:
+    """14b's prompts: printable ASCII text that the ByteTokenizer turns into
+    SERVE_LENGTHS tokens each (one BOS plus a token a byte)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 14)
+    return ["".join(chr(c) for c in rng.integers(32, 127, size=n - 1))
+            for n in SERVE_LENGTHS]
+
+
+def http_expected(torch, cfg, params) -> list[dict]:
+    """What 14b must return: an in-process LLMEngine, built as the replica
+    builds its engine (LLMEngine.from_config with phase 4's engine options)
+    on phase 10's weights, serving each prompt alone, one after the other,
+    with the server's sampling parameters (greedy, the byte EOS as stop
+    token). Run while phase 10's model is alive."""
+    from ray_tpu_torch.llm import (ByteTokenizer, LLMConfig, LLMEngine,
+                                   SamplingParams)
+
+    built = LLMConfig(engine_kwargs=http_engine_kwargs())
+    built.build_model = lambda device=None: (cfg, params)
+    tok = ByteTokenizer()
+    eng = LLMEngine.from_config(built)
+    try:
+        sp = SamplingParams(max_tokens=HTTP_MAX_TOKENS, temperature=0.0,
+                            stop_token_ids=(tok.eos_token_id,))
+        out = []
+        for text in http_prompts():
+            ids = eng.generate(tok.encode(text), sp)
+            out.append({"ids": ids, "text": tok.decode(ids)})
+    finally:
+        eng.shutdown()
+    return out
+
+
+def http_engine_kwargs() -> dict:
+    return {"kv_layout": "paged", "page_size": 64, "max_slots": 8,
+            "max_len": 2048, "seed": SEED}
+
+
+def probe_server(base, prepare=None):
+    """The LLM server's class with probes, for 14's replica: when its
+    process started, when CUDA was ready and when the model was built; the
+    token ids of every request it served, read in the replica; its launch
+    counts and weight fingerprints. Defined here, so nothing is added to
+    the package; pickled by value into the replica."""
+
+    class ProbeServer(base):
+        def __init__(self, llm_config):
+            import os
+            import time
+
+            t_enter = time.time()
+            with open("/proc/self/stat") as f:
+                start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+            with open("/proc/stat") as f:
+                btime = next(int(line.split()[1]) for line in f
+                             if line.startswith("btime"))
+            started = btime + start_ticks / os.sysconf("SC_CLK_TCK")
+            if prepare is not None:
+                prepare()
+            import torch
+
+            torch.empty(1, device=torch.device("cuda"))
+            torch.cuda.synchronize()
+            t_cuda = time.time()
+            super().__init__(llm_config)
+            torch.cuda.synchronize()
+            self.probe = {"process_start": started, "init_enter": t_enter,
+                          "cuda_ready": t_cuda, "model_built": time.time(),
+                          "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                          "pid": os.getpid()}
+            self.records: list = []
+
+        def _submit_retry(self, ids, params, lora):
+            req = super()._submit_retry(ids, params, lora)
+            rec = {"prompt_tokens": len(ids), "ids": []}
+            self.records.append(rec)
+
+            def tokens():
+                for t in req:
+                    rec["ids"].append(t)
+                    yield t
+
+            return tokens()
+
+        def probe_state(self, zero_counts: bool = False) -> dict:
+            from ray_tpu_torch.ops import flash_attention as fa
+            from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+            kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+            out = {"launches": {k.symbol: k.launches for k in kernels},
+                   "stats": self.engine.stats(),
+                   "records": list(self.records),
+                   "n_layers": self.engine.cfg.n_layers, **self.probe}
+            if zero_counts:
+                for k in kernels:
+                    k.launches = 0
+                self.records.clear()
+            return out
+
+        def probe_fingerprints(self) -> dict:
+            import torch
+
+            return weight_fingerprints(torch, self.engine.params)
+
+    return ProbeServer
+
+
+def http_post(port: int, path: str, body: dict, timeout: float = 600):
+    """(seconds, status, decoded JSON) of one POST on a fresh connection."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    payload = json.dumps(body)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, body=payload,
+                     headers={"Content-Type": "application/json",
+                              "Content-Length": str(len(payload))})
+        resp = conn.getresponse()
+        data = resp.read()
+    finally:
+        conn.close()
+    return time.perf_counter() - t0, resp.status, json.loads(data)
+
+
+def http_sse(port: int, path: str, body: dict, timeout: float = 600):
+    """(seconds to the first chunk, seconds to the end, status, the chunks'
+    JSON objects) of one SSE POST."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    payload = json.dumps(body)
+    t0 = time.perf_counter()
+    first = None
+    chunks, buf = [], b""
+    try:
+        conn.request("POST", path, body=payload,
+                     headers={"Content-Type": "application/json",
+                              "Accept": "text/event-stream",
+                              "Content-Length": str(len(payload))})
+        resp = conn.getresponse()
+        while resp.status == 200:
+            data = resp.read1(65536)
+            if not data:
+                break
+            buf += data
+            while b"\n\n" in buf:
+                raw, buf = buf.split(b"\n\n", 1)
+                if raw.startswith(b"data: "):
+                    if first is None:
+                        first = time.perf_counter() - t0
+                    chunks.append(raw[len(b"data: "):].decode())
+    finally:
+        conn.close()
+    return first, time.perf_counter() - t0, resp.status, chunks
+
+
+def openai_shape(out: dict) -> str | None:
+    """What is wrong with a text_completion response, or None."""
+    try:
+        ch = out["choices"][0]
+        ok = (out["object"] == "text_completion" and isinstance(ch["text"], str)
+              and ch["finish_reason"] == "stop"
+              and isinstance(out["usage"]["prompt_tokens"], int)
+              and 0 <= out["usage"]["completion_tokens"] <= HTTP_MAX_TOKENS)
+    except (KeyError, IndexError, TypeError):
+        ok = False
+    return None if ok else f"not an OpenAI completion of <= " \
+        f"{HTTP_MAX_TOKENS} tokens: {str(out)[:300]}"
+
+
+def serve_http(torch, rt, card: str, phase4: dict, phase13: dict,
+               expected: list[dict], prepare=None) -> dict:
+    """Phase 14: Llama-3-8B over HTTP from a num_gpus=1 Serve replica.
+    14a start, 14b sequential requests token-exact to in-process serving,
+    14c a concurrent wave and SSE streams, 14d launches in the replica,
+    14e times, 14f teardown leaves no segment of the session."""
+    import glob
+    import threading
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.llm import LLMConfig, ModelLoadingConfig
+    from ray_tpu_torch.llm import build_openai_app
+    from ray_tpu_torch.serve.deployment import Deployment
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t_phase = time.perf_counter()
+    segs = ("/dev/shm/rtpt_routes_*", "/dev/shm/rtpt_chan_*")
+    before = {p for g in segs for p in glob.glob(g)}
+    info = rt.init(num_cpus=4)
+    sid = info["session_id"]
+    prompts = http_prompts()
+    out = {"session": sid}
+    try:
+        # 14a: the app, its replica holding the card
+        serve.start(http_port=0)
+        host, port = serve.http_address()
+        app = build_openai_app(LLMConfig(
+            model_loading_config=ModelLoadingConfig(model_id="8b"),
+            model_family="llama", engine_kwargs=http_engine_kwargs(),
+            deployment_config={"ray_actor_options": {"num_gpus": 1}}))
+        dep = app.deployment
+        app.deployment = Deployment(probe_server(dep.func_or_class, prepare),
+                                    dep.name, dep.config)
+        full = f"llm_{dep.name}"
+        t_run = time.time()
+        handle = serve.run(app, name="llm", route_prefix="/llm")
+        # HEALTHY: the replica count is at target; its health turns
+        # "healthy" at the first probe it passes, after its __init__
+        deadline = time.monotonic() + 600
+        healthy_s = None
+        while True:
+            st = serve.status().get(full, {})
+            if healthy_s is None and st.get("status") == "HEALTHY":
+                healthy_s = time.time() - t_run
+            health = set(st.get("replica_health", {}).values())
+            if healthy_s is not None and health == {"healthy"}:
+                break
+            if time.monotonic() > deadline:
+                fail(f"14a: {full} not healthy after 600 s: {st}")
+            time.sleep(0.05)
+        ready_s = time.time() - t_run
+        if dep.config.request_router != "prefix_aware" or \
+                dep.config.ray_actor_options != {"num_gpus": 1}:
+            fail(f"14a: build_openai_app's options {dep.config}")
+        probe = handle.probe_state.remote(True).result(timeout_s=120)
+        if probe["visible"] in (None, ""):
+            fail(f"14a: the replica sees CUDA_VISIBLE_DEVICES="
+                 f"{probe['visible']!r}")
+        fps = handle.probe_fingerprints.remote().result(timeout_s=120)
+        if fps != phase4["fingerprints"]:
+            fail(f"14a: the replica's weights differ from phase 4's: {fps}")
+        out["14a"] = {
+            "serve_run_to_HEALTHY_s": healthy_s,
+            "serve_run_to_first_probe_passed_s": ready_s,
+            # negative: the pool had started the worker before serve.run
+            "replica_process_start_s": probe["process_start"] - t_run,
+            "process_to_init_s": probe["init_enter"] - probe["process_start"],
+            "cuda_context_s": probe["cuda_ready"] - probe["init_enter"],
+            "model_build_s": probe["model_built"] - probe["cuda_ready"],
+            "replica_visible": probe["visible"], "http_port": port}
+
+        # 14b: one request at a time, each token-exact to in-process serving
+        path = "/llm/v1/completions"
+        seq = []
+        for text, want in zip(prompts, expected):
+            s, status, body = http_post(port, path, {
+                "prompt": text, "max_tokens": HTTP_MAX_TOKENS,
+                "temperature": 0.0})
+            bad = openai_shape(body) if status == 200 else f"HTTP {status}"
+            if bad:
+                fail(f"14b: {bad}")
+            seq.append((s, body))
+        probe = handle.probe_state.remote().result(timeout_s=120)
+        got_ids = [r["ids"] for r in probe["records"]]
+        want_ids = [w["ids"] for w in expected]
+        if got_ids != want_ids:
+            diff = [i for i, (a, b) in enumerate(zip(got_ids, want_ids))
+                    if a != b]
+            fail(f"14b: the replica's token ids differ from in-process "
+                 f"serving in requests {diff} (of {len(got_ids)})")
+        for i, ((_, body), want) in enumerate(zip(seq, expected)):
+            if (body["choices"][0]["text"] != want["text"]
+                    or body["usage"]["completion_tokens"] != len(want["ids"])):
+                fail(f"14b: request {i}'s text or token count differs from "
+                     f"in-process serving")
+        out["14b"] = {"latency_s": [s for s, _ in seq],
+                      "completion_tokens": [b["usage"]["completion_tokens"]
+                                            for _, b in seq],
+                      "prompt_tokens": [b["usage"]["prompt_tokens"]
+                                        for _, b in seq]}
+
+        # 14c: the 8 prompts at once plus one SSE stream, then that stream
+        # alone, whose chunks must join to 14b's text of its prompt
+        body_of = [{"prompt": t, "max_tokens": HTTP_MAX_TOKENS,
+                    "temperature": 0.0} for t in prompts]
+        results: list = [None] * (len(prompts) + 1)
+
+        def call(i):
+            if i < len(prompts):
+                results[i] = http_post(port, path, body_of[i])
+            else:
+                results[i] = http_sse(port, path,
+                                      body_of[HTTP_STREAM_PROMPT])
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(results))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wave_s = time.perf_counter() - t0
+        if any(r is None for r in results):
+            fail("14c: a concurrent request did not return")
+        for i, (s, status, body) in enumerate(results[:-1]):
+            bad = openai_shape(body) if status == 200 else f"HTTP {status}"
+            if bad:
+                fail(f"14c: request {i}: {bad}")
+        agree = [body["choices"][0]["text"] == w["text"]
+                 and body["usage"]["completion_tokens"] == len(w["ids"])
+                 for (_, _, body), w in zip(results[:-1], expected)]
+        # the wave's ids as the replica saw them (the stream's request has
+        # the same prompt as request HTTP_STREAM_PROMPT: either may match)
+        wave = [(r["prompt_tokens"], r["ids"]) for r in handle.probe_state
+                .remote().result(timeout_s=120)["records"][len(prompts):]]
+        ids_agree = [(n, w["ids"]) in wave
+                     for n, w in zip(SERVE_LENGTHS, expected)]
+
+        def joined(chunks, status, what):
+            if status != 200 or not chunks or chunks[-1] != "[DONE]":
+                fail(f"14c: the {what} SSE stream ended with HTTP {status}, "
+                     f"last chunk {chunks[-1:]}")
+            objs = [json.loads(c) for c in chunks[:-1]]
+            if any(o.get("object") != "text_completion.chunk" for o in objs):
+                fail(f"14c: {what} stream chunk not text_completion.chunk")
+            if objs[-1]["choices"][0]["finish_reason"] != "stop" or \
+                    len(objs) - 1 > HTTP_MAX_TOKENS:
+                fail(f"14c: the {what} stream has {len(objs) - 1} tokens or "
+                     f"no final stop chunk")
+            return "".join(o["choices"][0]["text"] for o in objs), len(objs) - 1
+
+        wave_ttft, wave_stream_s, st, chunks = results[-1]
+        wave_text, wave_n = joined(chunks, st, "concurrent")
+        ttft, stream_s, st, chunks = http_sse(port, path,
+                                              body_of[HTTP_STREAM_PROMPT])
+        alone_text, alone_n = joined(chunks, st, "lone")
+        want = expected[HTTP_STREAM_PROMPT]
+        lone_ids = handle.probe_state.remote().result(
+            timeout_s=120)["records"][-1]["ids"]
+        if lone_ids != want["ids"]:
+            fail("14c: the lone stream's token ids differ from in-process "
+                 "serving of its prompt")
+        if alone_text != want["text"] or alone_n != len(want["ids"]):
+            fail(f"14c: the lone stream's chunks ({alone_n} tokens) do not "
+                 f"join to its prompt's non-streamed text "
+                 f"({len(want['ids'])} tokens)")
+        tokens = sum(b["usage"]["completion_tokens"]
+                     for _, _, b in results[:-1]) + wave_n
+        out["14c"] = {
+            "wave_s": wave_s, "latency_s": [r[0] for r in results[:-1]],
+            "stream_s": wave_stream_s, "stream_ttft_s": wave_ttft,
+            "tokens": tokens, "tokens_per_s": tokens / wave_s,
+            "agree_with_14b_text_and_count": agree,
+            "agree_with_14b_ids": ids_agree,
+            "stream_agrees_with_14b": wave_text == want["text"]
+            and wave_n == len(want["ids"]),
+            "lone_stream_ttft_s": ttft, "lone_stream_s": stream_s}
+
+        # 14d: the launches of 14b and 14c, counted in the replica
+        probe = handle.probe_state.remote().result(timeout_s=120)
+        st = probe["stats"]
+        launches = probe["launches"]
+        steps, prefills = st["decode_steps"], st["prefills"]
+        n_layers = probe["n_layers"]
+        if n_layers != 32:
+            fail(f"14d: the replica's model has {n_layers} layers, not 32")
+        want_l = {"flash_attention_fwd_bf16": n_layers * prefills,
+                  "ragged_paged_attention_bf16": n_layers * steps}
+        for sym, n in launches.items():
+            if n != want_l.get(sym, 0):
+                fail(f"14d: {sym} launched {n} times in the replica, "
+                     f"expected {want_l.get(sym, 0)} ({prefills} prefills, "
+                     f"{steps} decode steps)")
+        out["launches"] = launches
+        out["14d"] = {"prefills": prefills, "decode_steps": steps}
+        out["replica_prefill_ms_mean"] = 1e3 * st["prefill_seconds"] / prefills
+        out["replica_decode_step_ms_mean"] = 1e3 * st["decode_seconds"] / steps
+        stats = http_post(port, "/llm/v1/stats", {})[2]
+        if stats.get("decode_steps") != steps:
+            fail(f"14d: /v1/stats {stats}")
+        serve.shutdown()
+    finally:
+        rt.shutdown()
+    # 14f: nothing of the session is left
+    left = ({p for g in segs for p in glob.glob(g)} - before) | set(
+        glob.glob(f"/dev/shm/rtpt_{sid}*"))
+    if left:
+        fail(f"14f: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    a, b, c = out["14a"], out["14b"], out["14c"]
+    c13 = phase13["13c"]["second"]
+    print(f"serve over HTTP on {card}: serve.run to HEALTHY "
+          f"{a['serve_run_to_HEALTHY_s']:.3f} s, to the first probe passed "
+          f"{a['serve_run_to_first_probe_passed_s']:.3f} s (the replica's "
+          f"process started at {a['replica_process_start_s']:.3f}, imports "
+          f"{a['process_to_init_s']:.3f}, CUDA context "
+          f"{a['cuda_context_s']:.3f}, model build {a['model_build_s']:.3f}); "
+          f"sequential latency {min(b['latency_s']):.3f}-"
+          f"{max(b['latency_s']):.3f} s, concurrent "
+          f"{min(c['latency_s']):.3f}-{max(c['latency_s']):.3f} s, "
+          f"{c['tokens_per_s']:.1f} tokens/s; lone SSE TTFT "
+          f"{c['lone_stream_ttft_s'] * 1e3:.3f} ms; replica prefill "
+          f"{out['replica_prefill_ms_mean']:.3f} ms, decode step "
+          f"{out['replica_decode_step_ms_mean']:.3f} ms (phase 4 "
+          f"{phase4['prefill_ms_mean']:.3f} / "
+          f"{phase4['decode_step_ms_mean']:.3f}, 13c "
+          f"{c13['prefill_ms_mean']:.3f} / {c13['decode_step_ms_mean']:.3f}"
+          f"); phase 14 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -2551,7 +3009,7 @@ def main() -> int:
                 **{f"engine_{r}": {} for r in ENGINE_RUNS},
                 "pd_monolithic": {}, "pd_handoff": {},
                 "pd_coalesced_prefill": {}, "worker_kernels": {},
-                "actor_serve": {},
+                "actor_serve": {}, "serve_http": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -2629,7 +3087,10 @@ def main() -> int:
         pd = serve_pd(torch, all_kernels, card, cfg8b, params8b)
         for path in ("pd_monolithic", "pd_handoff", "pd_coalesced_prefill"):
             launches[path] = pd[path]
+        # phase 14's expected responses, on the same weights
+        expected14 = http_expected(torch, cfg8b, params8b)
         del params8b
+        gc.collect()  # engines that hold the 8B weights in reference cycles
         torch.cuda.empty_cache()
         # phase 13: the runtime on the card, after the driver's Llama-3-8B
         # copy is gone and before phase 11
@@ -2639,6 +3100,11 @@ def main() -> int:
         launches["worker_kernels"] = runtime["13b"]["launches"]
         launches["actor_serve"] = runtime["13c"]["launches"]
         print(json.dumps({"card": card, "runtime": runtime}), flush=True)
+        # phase 14: Llama-3-8B over HTTP from a Serve replica
+        http = serve_http(torch, ray_tpu_torch, card, serving, runtime,
+                          expected14)
+        launches["serve_http"] = http["launches"]
+        print(json.dumps({"card": card, "serve_http": http}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

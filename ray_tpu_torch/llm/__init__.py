@@ -1,6 +1,7 @@
-"""ray_tpu_torch.llm — the LLM engine on one GPU (PyTorch/CUDA port of
-ray_tpu.llm's engine) and the PD plane below Serve (kv_transfer, pd); the
-serve layer above them is not ported yet."""
+"""ray_tpu_torch.llm — LLM serving on the GPU (PyTorch/CUDA port of
+ray_tpu.llm): the engine, the PD plane below Serve (kv_transfer, pd), and
+the OpenAI server on Serve (server). The PD deployments and the batch
+processor are not ported yet."""
 
 from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
 
@@ -8,15 +9,22 @@ from ray_tpu_torch.llm.config import (LLMConfig, LoraConfig,
                                       ModelLoadingConfig, PDConfig)
 from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
 from ray_tpu_torch.llm.guided import GuidedFSM
-from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+from ray_tpu_torch.llm.kv_transfer import KVTransferError, PagedKVExporter
+from ray_tpu_torch.llm.server import LLMServer, build_openai_app
+from ray_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer
 
 __all__ = [
     "ByteTokenizer",
     "GuidedFSM",
+    "KVTransferError",
     "LLMConfig",
     "LLMEngine",
+    "LLMServer",
     "LoraConfig",
     "ModelLoadingConfig",
     "PDConfig",
+    "PagedKVExporter",
     "SamplingParams",
+    "build_openai_app",
+    "load_tokenizer",
 ]

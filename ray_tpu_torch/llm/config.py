@@ -25,8 +25,8 @@ class ModelLoadingConfig:
 @dataclass
 class LoraConfig:
     """Multi-LoRA serving: ``LLMEngine.from_config`` sizes its adapter bank
-    from it (max_loras, lora_rank). The serve layer, which loads adapters
-    from ``dynamic_lora_loading_path``, is not ported yet."""
+    from it (max_loras, lora_rank); ``llm/server.py`` loads adapters from
+    ``dynamic_lora_loading_path`` on demand."""
 
     dynamic_lora_loading_path: str = ""  # dir of <adapter_id>.npz files
     max_num_adapters_per_replica: int = 4

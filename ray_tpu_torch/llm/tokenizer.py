@@ -1,4 +1,5 @@
-"""Tokenizers (own copy of ray_tpu/llm/tokenizer.py's ByteTokenizer)."""
+"""Tokenizers (own copy of ray_tpu/llm/tokenizer.py): ByteTokenizer and
+load_tokenizer."""
 
 from __future__ import annotations
 
@@ -24,3 +25,15 @@ class ByteTokenizer:
         data = bytes(i for i in ids if i < 256)
         return data.decode("utf-8", errors="replace")
 
+
+
+def load_tokenizer(spec: str | None):
+    """None or "byte" → ByteTokenizer; otherwise a local tokenizer
+    directory through transformers.AutoTokenizer (imported here, so a
+    machine without transformers raises ImportError for a directory spec
+    and never falls back to bytes). Nothing is downloaded."""
+    if spec is None or spec == "byte":
+        return ByteTokenizer()
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(spec, local_files_only=True)

@@ -18,6 +18,8 @@ from ray_tpu_torch.models import transformer, vit
 
 
 def _to_tensor(leaf) -> torch.Tensor:
+    if isinstance(leaf, torch.Tensor):  # e.g. a bf16 leaf of a checkpoint
+        return leaf.detach().clone()
     arr = np.asarray(leaf)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16).copy()).view(torch.bfloat16)

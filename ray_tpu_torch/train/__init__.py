@@ -8,6 +8,8 @@ device planes of ``zero.py``; the model's loss is
 from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
 
 from ray_tpu_torch.train import zero
+from ray_tpu_torch.train.zero import (make_zero_train_step,
+                                      match_partition_rules)
 from ray_tpu_torch.train.optim import (AdamWInt8, adamw, adamw_int8,
                                        optimizer_state_bytes, param_leaves)
 from ray_tpu_torch.train.spmd import (init_sharded, make_sp_pp_train_step,
@@ -20,6 +22,8 @@ __all__ = [
     "init_sharded",
     "make_sp_pp_train_step",
     "make_train_step",
+    "make_zero_train_step",
+    "match_partition_rules",
     "optimizer_state_bytes",
     "param_leaves",
     "zero",

@@ -11,10 +11,13 @@ GPU worker that sees no card.
 
 from __future__ import annotations
 
+from functools import partial
+
 import os
-import threading
 
 import pytest
+
+from torch_twins import same, twin
 
 
 def _port(rt):
@@ -54,34 +57,8 @@ def pkgs():
                 os.environ[k] = v
 
 
-def _twin(pkgs, scenario):
-    results: list = [None, None]
-    errors: list = [None, None]
-
-    def run(i):
-        try:
-            results[i] = scenario(pkgs[i])
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors[i] = e
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=150)
-    assert not any(t.is_alive() for t in threads), "scenario hung"
-    for e in errors:
-        if e is not None:
-            raise e
-    return results
-
-
-def _same(pkgs, scenario, want=None):
-    a, b = _twin(pkgs, scenario)
-    assert a == b, (a, b)
-    if want is not None:
-        assert a == want
-    return a
+_twin = partial(twin, serve_cleanup=False)
+_same = partial(same, serve_cleanup=False)
 
 
 def _actor_class(rt):

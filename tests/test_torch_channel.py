@@ -251,11 +251,39 @@ _ALLOWED = {
     ("silent-swallow", "_private/worker.py", "CoreWorker.disconnect"),
     ("silent-swallow", "_private/worker.py", "ObjectRef.__del__"),
     ("silent-swallow", "_private/worker.py", "ObjectRefGenerator.__del__"),
+    # Serve and the LLM server (baseline.txt's serve/ and llm/server.py
+    # entries): persist-before-side-effect writes under the controller's
+    # mutation lock, advisory counters and emptiness polls read bare,
+    # best-effort teardown, probes and telemetry, a GC finalizer
+    ("blocking-under-lock", "serve/controller.py",
+     "ServeController._do_autoscale"),
+    ("blocking-under-lock", "serve/controller.py",
+     "ServeController._do_reconcile"),
+    ("blocking-under-lock", "serve/controller.py",
+     "ServeController.delete_application"),
+    ("blocking-under-lock", "serve/controller.py",
+     "ServeController.deploy_application"),
+    ("blocking-under-lock", "serve/controller.py",
+     "ServeController.note_replica_addr"),
+    ("guarded-attr", "serve/controller.py", "ServeController._persist_meta"),
+    ("guarded-attr", "serve/handle.py", "_Router.pick"),
+    ("guarded-attr", "serve/handle.py", "_Router.pick.pow2"),
+    ("guarded-attr", "serve/replica.py", "ReplicaActor.ongoing"),
+    ("guarded-attr", "serve/replica.py", "ReplicaActor.stats"),
+    ("silent-swallow", "llm/server.py", "_AdapterHandle.__del__"),
+    ("silent-swallow", "serve/api.py", "shutdown"),
+    ("silent-swallow", "serve/controller.py", "ServeController._kill_replica"),
+    ("silent-swallow", "serve/controller.py", "ServeController._probe_health"),
+    ("silent-swallow", "serve/controller.py",
+     "ServeController._reconcile_loop"),
+    ("silent-swallow", "serve/controller.py", "ServeController.shutdown"),
+    ("silent-swallow", "serve/controller.py", "_count"),
+    ("silent-swallow", "serve/multiplex.py", "multiplexed.wrap.get_model"),
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
-# the transfer plane, PD and channel modules, and the runtime core's host
-# modules
+# the transfer plane, PD and channel modules, the runtime core's host
+# modules, Serve and the LLM server
 _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "events", "fixed_point", "gcs", "gcs_storage", "ids",
             "local_mode", "log_monitor", "memory_monitor", "node",
@@ -263,14 +291,20 @@ _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "procutil", "protocol", "pubsub", "ray_config",
             "runtime_env_container", "serialization", "shm_arena",
             "task_events", "task_spec", "worker", "worker_main")
+_SERVE = ("__init__", "api", "batching", "config", "controller",
+          "deployment", "gcs_state", "handle", "http_server", "multiplex",
+          "proxy", "proxy_plane", "replica", "request_context",
+          "request_router", "rpc_ingress", "schema")
 _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
             "experimental/channel/mutable_shm.py",
             "experimental/channel/channel.py", "util/metrics.py",
             "util/tracing.py", "util/state.py", "util/placement_group.py",
             "util/actor_pool.py", "util/scheduling_strategies.py",
             "remote_function.py", "actor.py", "runtime_env.py",
-            "cross_lang.py", "exceptions.py") + tuple(
-                f"_private/{m}.py" for m in _RUNTIME)
+            "cross_lang.py", "exceptions.py", "llm/server.py",
+            "llm/tokenizer.py", "llm/checkpoint_io.py") + tuple(
+                f"_private/{m}.py" for m in _RUNTIME) + tuple(
+                f"serve/{m}.py" for m in _SERVE)
 
 
 def test_graft_check_invariants_hold_on_the_ports_host_modules():

@@ -254,6 +254,20 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.util.scheduling_strategies\n"
         "import ray_tpu_torch.util.state, ray_tpu_torch.util.actor_pool\n"
         "import ray_tpu_torch.util.tracing\n"
+        "import ray_tpu_torch.serve, ray_tpu_torch.serve.api\n"
+        "import ray_tpu_torch.serve.batching, ray_tpu_torch.serve.config\n"
+        "import ray_tpu_torch.serve.controller\n"
+        "import ray_tpu_torch.serve.deployment\n"
+        "import ray_tpu_torch.serve.gcs_state, ray_tpu_torch.serve.handle\n"
+        "import ray_tpu_torch.serve.http_server\n"
+        "import ray_tpu_torch.serve.multiplex, ray_tpu_torch.serve.proxy\n"
+        "import ray_tpu_torch.serve.proxy_plane\n"
+        "import ray_tpu_torch.serve.replica\n"
+        "import ray_tpu_torch.serve.request_context\n"
+        "import ray_tpu_torch.serve.request_router\n"
+        "import ray_tpu_torch.serve.rpc_ingress\n"
+        "import ray_tpu_torch.serve.schema\n"
+        "import ray_tpu_torch.llm.server, ray_tpu_torch.llm.tokenizer\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

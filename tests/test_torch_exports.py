@@ -1,0 +1,100 @@
+"""The port's public names against the JAX package's (ROADMAP Queue 3 E).
+
+Each subpackage's ``__all__`` equals the reference's but for one explicit
+table of allowed differences: a reference name not ported yet, with the
+ROADMAP.md Queue 1 item that ports it; a deliberate rename; or a name of
+the port's own. An entry goes when its item lands.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import pytest
+
+# package → {name: why it differs}. "item N": ROADMAP.md Queue 1 item N
+# ports it; "rename": the port's name for it; "port": the port's own name
+# (the reference has no counterpart, or keeps it outside __all__)
+ALLOWED = {
+    "": {
+        "resolve_device": "port: the device entry points run on (cuda "
+                          "unless the caller asks for the CPU)",
+    },
+    "llm": {
+        "Processor": "item 9d",
+        "build_llm_processor": "item 9d",
+        "build_pd_openai_app": "item 9c",
+        "TPUEngine": "rename: LLMEngine",
+        "LLMEngine": "rename of TPUEngine",
+        "LoraConfig": "port: exported (the reference keeps it in "
+                      "llm.config)",
+    },
+    "train": {
+        **{n: "item 12" for n in (
+            "BackendConfig", "Checkpoint", "CheckpointConfig",
+            "DataParallelTrainer", "FailureConfig", "Result", "RunConfig",
+            "ScalingConfig", "TorchConfig", "TorchTrainer",
+            "TrainingFailedError", "ZeroShardedOptimizer",
+            "broadcast_from_rank_zero", "collective_barrier",
+            "get_checkpoint", "get_context", "get_dataset_shard", "report",
+            "report_opt_state", "storage")},
+        "JaxConfig": "item 12 (the port's backend config replaces it)",
+        "JaxTrainer": "item 12 (TorchTrainer replaces it)",
+        **{n: "port: the optimizers the reference takes from optax"
+           for n in ("AdamWInt8", "adamw", "adamw_int8",
+                     "optimizer_state_bytes", "param_leaves")},
+    },
+    "serve": {},
+    "util": {},
+    "parallel": {
+        "shard_map": "port: explicit per-rank SPMD takes its place",
+        **{n: "port: the DeviceMesh's axis names and helpers, which the "
+              "reference takes from jax.sharding"
+           for n in ("MESH_AXIS_DP", "MESH_AXIS_EP", "MESH_AXIS_FSDP",
+                     "MESH_AXIS_PP", "MESH_AXIS_SP", "MESH_AXIS_TP",
+                     "NamedSharding", "P", "PartitionSpec", "current_mesh",
+                     "launch", "local_mesh_devices", "use_mesh")},
+    },
+    "models": {
+        **{n: "port: submodules the reference keeps outside __all__"
+           for n in ("convert", "decoding", "decoding_paged")},
+    },
+    "ops": {
+        "flash_attention": "port: the name is the kernel's submodule; the "
+                           "function is FlashAttention / "
+                           "flash_attention_backward",
+        **{n: "port: the kernels' entry points and plain versions"
+           for n in ("FlashAttention", "flash_attention_backward",
+                     "kernel_fits", "reference_attention", "topk_routing")},
+    },
+}
+
+
+def _all(pkg: str, sub: str) -> set:
+    mod = importlib.import_module(f"{pkg}.{sub}" if sub else pkg)
+    return set(mod.__all__)
+
+
+@pytest.mark.parametrize("sub", sorted(ALLOWED))
+def test_all_matches_the_reference_but_the_named_differences(sub):
+    ref, port = _all("ray_tpu", sub), _all("ray_tpu_torch", sub)
+    allowed = ALLOWED[sub]
+    assert (ref ^ port) == set(allowed), (
+        f"unlisted: {sorted((ref ^ port) - set(allowed))}, "
+        f"stale: {sorted(set(allowed) - (ref ^ port))}")
+    for name in port:  # every exported name resolves
+        assert hasattr(importlib.import_module(
+            f"ray_tpu_torch.{sub}" if sub else "ray_tpu_torch"), name), name
+
+
+def test_queue3_e_names_are_exported():
+    from ray_tpu_torch.llm import KVTransferError, PagedKVExporter
+    from ray_tpu_torch.llm import kv_transfer
+    from ray_tpu_torch.train import make_zero_train_step, \
+        match_partition_rules
+    from ray_tpu_torch.train import zero
+
+    assert KVTransferError is kv_transfer.KVTransferError
+    assert PagedKVExporter is kv_transfer.PagedKVExporter
+    assert make_zero_train_step is zero.make_zero_train_step
+    assert match_partition_rules is zero.match_partition_rules

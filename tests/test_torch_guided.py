@@ -2,9 +2,9 @@
 on the CPU, and the port's own copy of the FSM builders (llm/guided.py)
 against ray_tpu.llm.guided: the same tables on the same inputs.
 
-Twins of tests/test_llm_guided.py (14 of its 16; test_server_guided_choice_
-end_to_end and test_server_guided_regex_end_to_end need the serve layer,
-not ported yet): test_choices_constraint_exact, test_permissive_fsm_matches_
+Twins of tests/test_llm_guided.py (14 of its 16 here; the twins of
+test_server_guided_choice_end_to_end and test_server_guided_regex_end_to_end
+are in tests/test_torch_llm_server.py): test_choices_constraint_exact, test_permissive_fsm_matches_
 unconstrained, test_token_sets_template, test_mixed_guided_and_free_batch,
 test_guided_with_sampling_temperature, test_guided_rejects_bad_configs,
 test_fsm_builders, test_regex_fsm_constrains_engine, test_regex_builder_

@@ -4,8 +4,8 @@ ray_tpu.models.decoding.
 
 Twins of tests/test_llm_lora.py: test_zero_adapter_matches_base_exactly,
 test_adapter_matches_dense_merge_token_exact, test_per_slot_isolation_mixed_
-batch, test_load_unload_refcounts (test_lora_served_through_multiplex needs
-the serve layer, not ported yet).
+batch, test_load_unload_refcounts (the twin of
+test_lora_served_through_multiplex is in tests/test_torch_llm_server.py).
 """
 
 import jax

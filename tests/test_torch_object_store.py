@@ -16,16 +16,19 @@
 
 from __future__ import annotations
 
+from functools import partial
+
 import glob
 import os
 import subprocess
 import sys
-import threading
 import uuid
 
 import numpy as np
 import pytest
 import torch
+
+from torch_twins import twin
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -51,26 +54,7 @@ def pkgs():
         rt.shutdown()
 
 
-def _twin(pkgs, scenario):
-    results: list = [None, None]
-    errors: list = [None, None]
-
-    def run(i):
-        try:
-            results[i] = scenario(pkgs[i])
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors[i] = e
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-    assert not any(t.is_alive() for t in threads), "scenario hung"
-    for e in errors:
-        if e is not None:
-            raise e
-    return results
+_twin = partial(twin, serve_cleanup=False)
 
 
 def _tensors():

@@ -16,14 +16,17 @@ never imports this file or the JAX package.
 
 from __future__ import annotations
 
+from functools import partial
+
 import os
 import subprocess
 import sys
-import threading
 import time
 
 import numpy as np
 import pytest
+
+from torch_twins import same, twin
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,35 +50,8 @@ def pkgs():
         rt.shutdown()
 
 
-def _twin(pkgs, scenario):
-    """scenario(ray_tpu) and scenario(ray_tpu_torch), concurrently."""
-    results: list = [None, None]
-    errors: list = [None, None]
-
-    def run(i):
-        try:
-            results[i] = scenario(pkgs[i])
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            errors[i] = e
-
-    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=120)
-    assert not any(t.is_alive() for t in threads), "scenario hung"
-    for e in errors:
-        if e is not None:
-            raise e
-    return results
-
-
-def _same(pkgs, scenario, want=None):
-    a, b = _twin(pkgs, scenario)
-    assert a == b, (a, b)
-    if want is not None:
-        assert a == want
-    return a
+_twin = partial(twin, serve_cleanup=False)
+_same = partial(same, serve_cleanup=False)
 
 
 def _kill_all(rt, *actors):
@@ -874,6 +850,34 @@ def test_the_two_runtimes_own_disjoint_names(pkgs):
     assert not glob.glob(f"/dev/shm/rtpt_{japi._node.session_id}*")
     spawn = ray_config.RayConfig.spawn_env()
     assert all(k.startswith("RAY_TPU_TORCH_") for k in spawn)
+    # Serve: routing segments, the body-escrow key, the Serve config flags
+    # and the controller's and proxy's names in the port's own GCS
+    assert constants.SHM_ROUTING_PREFIX == "rtpt_routes_"
+    assert constants.SHM_ROUTING_GLOB.endswith("/rtpt_routes_*")
+    assert constants.SERVE_BODY_REF_KEY == "__rtpt_body_ref__"
+    os.environ["RAY_TPU_TORCH_SERVE_NUM_PROXIES"] = "3"
+    os.environ["RAY_TPU_SERVE_NUM_PROXIES"] = "5"
+    try:
+        ray_config.RayConfig.reset()
+        assert ray_config.RayConfig.instance().serve_num_proxies == 3
+    finally:
+        del os.environ["RAY_TPU_TORCH_SERVE_NUM_PROXIES"]
+        del os.environ["RAY_TPU_SERVE_NUM_PROXIES"]
+        ray_config.RayConfig.reset()
+    import ray_tpu
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+
+    serve.start(http_port=0)
+    try:
+        assert ray_tpu_torch.get_actor(constants.SERVE_CONTROLLER_NAME,
+                                       namespace="_system")
+        assert serve.http_address()[1] > 0
+        with pytest.raises(ValueError):
+            ray_tpu.get_actor(constants.SERVE_CONTROLLER_NAME,
+                              namespace="_system")
+    finally:
+        serve.shutdown()
 
 
 def test_temp_root_follows_tmpdir_and_reaches_workers(pkgs, monkeypatch,
