@@ -219,6 +219,43 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       or ``rtpt_chan_*`` segment made during the phase, and no segment of
       the session, is left.
 
+15. Llama-3-8B disaggregated over HTTP (a new runtime session, after
+   phase 14, before phase 11): ``RAY_TPU_TORCH_WORKER_PLATFORM=cuda`` (and
+   span sampling at every request) in the environment before ``init``, so
+   that replicas without a GPU grant see the card, restored after.
+   ``serve.run(build_pd_openai_app(LLMConfig(...)), route_prefix="/pd")``
+   with phase 14's config and ``PDConfig()``: one prefill, one decode and
+   one proxy replica, the classes swapped for probing subclasses defined
+   here.
+   a. Each pool's seconds to HEALTHY and to its first passed probe; the
+      composition is the reference's (no GPU grant, one replica a pool);
+      both replicas' weights equal phase 10's; the proxy holds no CUDA
+      context.
+   b. Phase 14's 8 prompts one at a time as ``POST /pd`` (greedy, 32
+      tokens): the ids read in the decode replica equal an in-process
+      ``LLMEngine`` on ``_pd_engine_kwargs`` serving each prompt alone
+      (with, per prompt, how far ``prefill_batch`` at B = 1 and
+      ``decoding.prefill`` are apart); 32 tokens, 0 < ttft_s <=
+      total_time_s.
+   c. The 8 at once plus an SSE stream (the proxy's reply shapes), the
+      stream alone (its chunks join to 15b's text), then a client dropped
+      after its first chunk of a 256-token request: the decode pool's
+      slots and pages come back, no pull and no prefill ticket is pending,
+      and the engine counted the abort.
+   d. One sampled request's trace holds serve:request, proxy:route,
+      pd:prefill, pd:kv_send, pd:kv_transfer, pd:admission and pd:decode
+      across >= 3 processes; its pd_proxy row holds both TTFT halves.
+   e. Launches over 15b-15d: the prefill replica flash = 32 x its prefill
+      forwards and nothing else, the decode replica ragged = 32 x its
+      decode steps and nothing else (no prefill), the proxy none.
+   f. Host-clock times: the TTFT halves (``usage.ttft_s``, the recorder's
+      ``decode_first_token``), latencies, the wave's tokens/s, the plane's
+      pages and GB/s (pull to last page, read in the decode replica),
+      beside phase 14's.
+   g. After ``serve.shutdown()`` and ``shutdown()`` no ``rtpt_routes_*``
+      or ``rtpt_chan_*`` segment made during the phase, and none of the
+      session, is left.
+
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2234,6 +2271,16 @@ def http_engine_kwargs() -> dict:
             "max_len": 2048, "seed": SEED}
 
 
+def process_start_time() -> float:
+    """Wall-clock start of this process, from /proc."""
+    with open("/proc/self/stat") as f:
+        ticks = int(f.read().rsplit(")", 1)[1].split()[19])
+    with open("/proc/stat") as f:
+        btime = next(int(line.split()[1]) for line in f
+                     if line.startswith("btime"))
+    return btime + ticks / os.sysconf("SC_CLK_TCK")
+
+
 def probe_server(base, prepare=None):
     """The LLM server's class with probes, for 14's replica: when its
     process started, when CUDA was ready and when the model was built; the
@@ -2247,12 +2294,7 @@ def probe_server(base, prepare=None):
             import time
 
             t_enter = time.time()
-            with open("/proc/self/stat") as f:
-                start_ticks = int(f.read().rsplit(")", 1)[1].split()[19])
-            with open("/proc/stat") as f:
-                btime = next(int(line.split()[1]) for line in f
-                             if line.startswith("btime"))
-            started = btime + start_ticks / os.sysconf("SC_CLK_TCK")
+            started = process_start_time()
             if prepare is not None:
                 prepare()
             import torch
@@ -2596,6 +2638,596 @@ def serve_http(torch, rt, card: str, phase4: dict, phase13: dict,
           f"{phase4['decode_step_ms_mean']:.3f}, 13c "
           f"{c13['prefill_ms_mean']:.3f} / {c13['decode_step_ms_mean']:.3f}"
           f"); phase 14 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+# ----------------------------------------------------------------- phase 15
+
+PD_ENV = {"RAY_TPU_TORCH_WORKER_PLATFORM": "cuda",   # pools reach the card
+          "RAY_TPU_TORCH_SERVE_SPAN_SAMPLE_EVERY": "1"}  # 15d's span tree
+PD_DROP_TOKENS = 256    # 15c's dropped stream: still decoding when it drops
+PD_SPANS = {"serve:request", "proxy:route", "pd:prefill", "pd:kv_send",
+            "pd:kv_transfer", "pd:admission", "pd:decode"}
+PD_WAIT_S_HTTP = 60.0
+
+
+def pd_expected(torch, cfg, params) -> dict:
+    """What 15b must return: an in-process LLMEngine on _pd_engine_kwargs of
+    phase 15's engine options (the PD pools' shapes) and phase 10's
+    weights, serving each prompt alone, greedy, 32 tokens, no stop token
+    (the PD proxy passes none). Beside it, per prompt, how far the prefill
+    tier's call (``prefill_batch`` at B = 1) and the engine's
+    (``decoding.prefill``) are apart in bf16 logits. Run while phase 10's
+    model is alive."""
+    from ray_tpu_torch.llm import (ByteTokenizer, LLMConfig, LLMEngine,
+                                   SamplingParams)
+    from ray_tpu_torch.llm.engine import bucket_for
+    from ray_tpu_torch.llm.pd import _pd_engine_kwargs
+    from ray_tpu_torch.models import decoding
+
+    ek = _pd_engine_kwargs(LLMConfig(engine_kwargs=http_engine_kwargs()))
+    built = LLMConfig(engine_kwargs=ek)
+    built.build_model = lambda device=None: (cfg, params)
+    tok = ByteTokenizer()
+    eng = LLMEngine.from_config(built)
+    try:
+        sp = SamplingParams(max_tokens=HTTP_MAX_TOKENS, temperature=0.0)
+        out = []
+        for text in http_prompts():
+            ids = eng.generate(tok.encode(text), sp)
+            out.append({"ids": ids, "text": tok.decode(ids)})
+    finally:
+        eng.shutdown()
+    rows = []
+    dev = params["embed"].device
+    with torch.no_grad():
+        for text in http_prompts():
+            ids = tok.encode(text)
+            bucket = bucket_for(len(ids), ek["min_bucket"], ek["max_len"])
+            toks = torch.zeros((1, bucket), dtype=torch.int64, device=dev)
+            toks[0, :len(ids)] = torch.as_tensor(ids, device=dev)
+            solo = decoding.prefill(params, toks, len(ids), cfg)[0]
+            batched = decoding.prefill_batch(params, toks, [len(ids)],
+                                             cfg)[0][0]
+            rows.append({"max_abs_diff": float((solo - batched).abs().max()),
+                         "same_argmax": int(solo.argmax()) ==
+                         int(batched.argmax())})
+    return {"expected": out, "prefill_batch_vs_prefill": rows}
+
+
+def pd_probe(base, role: str, prepare=None):
+    """A PD deployment's class with probes, for phase 15's replicas (role
+    "prefill", "decode" or "proxy"): when its process started and when it
+    was built, whether it holds a CUDA context, its launch counts and
+    weight fingerprints; in the decode replica, the token ids of every
+    request and each page transfer's pages, bytes and seconds (pull to last
+    page). Defined here, so nothing is added to the package; pickled by
+    value into the replica."""
+
+    class PDProbe(base):
+        def __init__(self, *args, **kwargs):
+            import time
+
+            t_enter = time.time()
+            started = process_start_time()
+            if prepare is not None:
+                prepare()
+            import torch
+
+            super().__init__(*args, **kwargs)
+            if role != "proxy":
+                torch.cuda.synchronize()
+            self.probe = {"process_start": started, "init_enter": t_enter,
+                          "built": time.time(), "pid": os.getpid(),
+                          "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                          "granted": os.environ.get(
+                              "RAY_TPU_TORCH_WORKER_GPUS", "")}
+            self.records: list = []
+            self.transfers: list = []
+            self.base = self._counters()
+            if role == "decode" and self.puller is not None:
+                real_pull = self.puller.pull
+
+                def pull(ticket, stream, timeout_s=60.0):
+                    t0 = time.time()
+                    real_pull(ticket, stream, timeout_s=timeout_s)
+                    self.transfers.append((ticket, stream, t0))
+
+                self.puller.pull = pull
+
+        def _counters(self) -> dict:
+            if role == "prefill":
+                return {"forwards": self.coalescer.batches,
+                        "jobs": self.coalescer.jobs}
+            if role == "decode":
+                st = self.engine.stats()
+                return {"decode_steps": st["decode_steps"],
+                        "prefills": st["prefills"], "aborts": st["aborts"]}
+            return {}
+
+        def probe_state(self, zero_counts: bool = False) -> dict:
+            import torch
+
+            from ray_tpu_torch.ops import flash_attention as fa
+            from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+            kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+            now = self._counters()
+            out = {"launches": {k.symbol: k.launches for k in kernels},
+                   "cuda_initialized": torch.cuda.is_initialized(),
+                   "counts": {k: v - self.base[k] for k, v in now.items()},
+                   **self.probe}
+            if role == "prefill":
+                out["stats"] = self.transfer_stats()
+                out["n_layers"] = self.cfg.n_layers
+            if role == "decode":
+                out["stats"] = self.engine_stats()
+                out["n_layers"] = self.engine.cfg.n_layers
+                out["records"] = list(self.records)
+                out["transfers"] = []
+                for ticket, stream, t0 in self.transfers:
+                    item = torch.empty((), dtype=getattr(
+                        torch, ticket["dtype"])).element_size()
+                    page = 2 * item
+                    for d in ticket["page_shape"]:
+                        page *= d
+                    out["transfers"].append({
+                        "pages": ticket["n_pages"],
+                        "bytes": ticket["n_pages"] * page,
+                        "s": (stream.finished_ts or t0) - t0})
+            if zero_counts:
+                for k in kernels:
+                    k.launches = 0
+                self.records.clear()
+                self.transfers.clear()
+                self.base = now
+            return out
+
+        def probe_fingerprints(self) -> dict:
+            import torch
+
+            params = self.params if role == "prefill" else self.engine.params
+            return weight_fingerprints(torch, params)
+
+    if role != "decode":
+        return PDProbe
+
+    class DecodeProbe(PDProbe):
+        def decode_stream(self, ticket, params=None):
+            rec = {"length": ticket["length"], "ids": []}
+            self.records.append(rec)
+            gen = super().decode_stream(ticket, params)
+            try:
+                for t in gen:
+                    rec["ids"].append(t)
+                    yield t
+            finally:
+                gen.close()
+
+    return DecodeProbe
+
+
+def pd_shape(out: dict, n_max: int = HTTP_MAX_TOKENS) -> str | None:
+    """What is wrong with a PD proxy reply, or None."""
+    try:
+        ch, u = out["choices"][0], out["usage"]
+        ok = (isinstance(ch["text"], str) and ch["finish_reason"] == "stop"
+              and isinstance(u["prompt_tokens"], int)
+              and 0 <= u["completion_tokens"] <= n_max
+              and 0 < u["ttft_s"] <= u["total_time_s"])
+    except (KeyError, IndexError, TypeError):
+        ok = False
+    return None if ok else f"not a PD proxy completion of <= {n_max} " \
+        f"tokens with 0 < ttft_s <= total_time_s: {str(out)[:300]}"
+
+
+def sse_joined(chunks, status, what: str) -> tuple[str, int]:
+    """The text and token count of a PD proxy SSE stream; fails 15c when
+    it is not one chunk a token, a final stop chunk with usage, and
+    ``[DONE]``."""
+    if status != 200 or not chunks or chunks[-1] != "[DONE]":
+        fail(f"15c: the {what} SSE stream ended with HTTP {status}, last "
+             f"chunk {chunks[-1:]}")
+    objs = [json.loads(c) for c in chunks[:-1]]
+    if any(o.get("object") != "text_completion.chunk" for o in objs):
+        fail(f"15c: {what} stream chunk not text_completion.chunk")
+    last = objs[-1]
+    n = len(objs) - 1
+    if last["choices"][0]["finish_reason"] != "stop" or \
+            last.get("usage", {}).get("completion_tokens") != n or \
+            n > HTTP_MAX_TOKENS:
+        fail(f"15c: the {what} stream has {n} tokens and final chunk "
+             f"{str(last)[:200]}")
+    return "".join(o["choices"][0]["text"] for o in objs), n
+
+
+def sse_drop(port: int, path: str, body: dict) -> float:
+    """Open an SSE stream, read up to its first chunk, and drop the client
+    (response and connection both closed, so the proxy sees the socket
+    go). Returns the seconds to the first chunk."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    payload = json.dumps(body)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", path, body=payload,
+                     headers={"Content-Type": "application/json",
+                              "Accept": "text/event-stream",
+                              "Content-Length": str(len(payload))})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            fail(f"15c: the dropped stream got HTTP {resp.status}")
+        buf = b""
+        while b"data: " not in buf:
+            data = resp.read1(65536)
+            if not data:
+                fail("15c: the dropped stream ended before its first chunk")
+            buf += data
+        first = time.perf_counter() - t0
+        resp.close()
+    finally:
+        conn.close()
+    return first
+
+
+def serve_pd_http(torch, rt, card: str, phase4: dict, phase14: dict,
+                  fps10: dict, ref: dict, prepare=None) -> dict:
+    """Phase 15: Llama-3-8B disaggregated over HTTP, a prefill replica and
+    a decode replica sharing the card. 15a start, 15b sequential requests
+    token-exact to in-process serving, 15c a concurrent wave, SSE streams
+    and a dropped client, 15d a sampled request's span tree, 15e launches
+    in each replica, 15f times, 15g teardown leaves no segment."""
+    import glob
+    import threading
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch._private.api import _get_worker
+    from ray_tpu_torch._private.ray_config import RayConfig
+    from ray_tpu_torch.llm import LLMConfig, ModelLoadingConfig, PDConfig
+    from ray_tpu_torch.llm import build_pd_openai_app
+    from ray_tpu_torch.serve.deployment import Deployment
+    from ray_tpu_torch.util import tracing
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t_phase = time.perf_counter()
+    segs = ("/dev/shm/rtpt_routes_*", "/dev/shm/rtpt_chan_*")
+    before = {p for g in segs for p in glob.glob(g)}
+    saved = {k: os.environ.get(k) for k in PD_ENV}
+    os.environ.update(PD_ENV)
+    RayConfig.reset()
+    expected = ref["expected"]
+    prompts = http_prompts()
+    out = {}
+    try:
+        info = rt.init(num_cpus=8)
+        sid = out["session"] = info["session_id"]
+        # 15a: the app as build_pd_openai_app composes it, its classes
+        # swapped for probing subclasses
+        serve.start(http_port=0)
+        host, port = serve.http_address()
+        cfg = LLMConfig(
+            model_loading_config=ModelLoadingConfig(model_id="8b"),
+            model_family="llama", engine_kwargs=http_engine_kwargs(),
+            pd_config=PDConfig())
+        app = build_pd_openai_app(cfg)
+        apps = app.flatten()
+        composed = [(a.deployment.name, a.deployment.config.num_replicas,
+                     a.deployment.config.ray_actor_options) for a in apps]
+        if composed != [(n, 1, {}) for n in ("PrefillServer",
+                                             "DecodeServer",
+                                             "PDProxyServer")] or \
+                app.init_args[2] != "byte":
+            fail(f"15a: build_pd_openai_app composed {composed}, "
+                 f"{app.init_args[2:]}")
+        roles = {"PrefillServer": "prefill", "DecodeServer": "decode",
+                 "PDProxyServer": "proxy"}
+        for a in apps:
+            d = a.deployment
+            a.deployment = Deployment(
+                pd_probe(d.func_or_class, roles[d.name], prepare), d.name,
+                d.config)
+        t_run = time.time()
+        proxy = serve.run(app, name="pd", route_prefix="/pd")
+        pools = {n: f"pd_{n}" for n in roles}
+        healthy, ready = {}, {}
+        deadline = time.monotonic() + 900
+        while len(ready) < len(pools):
+            st = serve.status()
+            for n, full in pools.items():
+                s = st.get(full, {})
+                if n not in healthy and s.get("status") == "HEALTHY":
+                    healthy[n] = time.time() - t_run
+                if n in healthy and n not in ready and set(
+                        s.get("replica_health", {}).values()) == {"healthy"}:
+                    ready[n] = time.time() - t_run
+            if time.monotonic() > deadline:
+                fail(f"15a: the PD pools not healthy after 900 s: {st}")
+            time.sleep(0.05)
+        pre = serve.get_deployment_handle("PrefillServer", "pd")
+        dec = serve.get_deployment_handle("DecodeServer", "pd")
+        probes = {"prefill": pre.probe_state.remote(True).result(
+                      timeout_s=120),
+                  "decode": dec.probe_state.remote(True).result(
+                      timeout_s=120),
+                  "proxy": proxy.probe_state.remote(True).result(
+                      timeout_s=120)}
+        fps = {r: h.probe_fingerprints.remote().result(timeout_s=120)
+               for r, h in (("prefill", pre), ("decode", dec))}
+        if not (fps["prefill"] == fps["decode"] == fps10
+                == phase4["fingerprints"]):
+            fail(f"15a: the replicas' weights differ from each other or "
+                 f"from phase 10's: {fps} vs {fps10}")
+        if probes["proxy"]["cuda_initialized"]:
+            fail("15a: the PD proxy replica holds a CUDA context")
+        for r, p in probes.items():
+            if p["granted"]:
+                fail(f"15a: the {r} replica was granted GPU "
+                     f"{p['granted']!r}; build_pd_openai_app grants none")
+        out["15a"] = {
+            "serve_run_to_HEALTHY_s": healthy,
+            "serve_run_to_first_probe_passed_s": ready,
+            "replica_process_start_s": {
+                r: p["process_start"] - t_run for r, p in probes.items()},
+            "process_to_init_s": {
+                r: p["init_enter"] - p["process_start"]
+                for r, p in probes.items()},
+            "init_s": {r: p["built"] - p["init_enter"]
+                       for r, p in probes.items()},
+            "pids": {r: p["pid"] for r, p in probes.items()},
+            "http_port": port}
+
+        # 15b: one request at a time, token-exact to in-process serving
+        seq = []
+        for i, text in enumerate(prompts):
+            s, status, body = http_post(port, "/pd", {
+                "prompt": text, "max_tokens": HTTP_MAX_TOKENS,
+                "temperature": 0.0})
+            bad = pd_shape(body) if status == 200 else f"HTTP {status}"
+            if bad:
+                fail(f"15b: request {i}: {bad}")
+            if body["usage"]["completion_tokens"] != HTTP_MAX_TOKENS:
+                fail(f"15b: request {i} has "
+                     f"{body['usage']['completion_tokens']} tokens, not "
+                     f"{HTTP_MAX_TOKENS}")
+            seq.append((s, body))
+        got_ids = [r["ids"] for r in dec.probe_state.remote().result(
+            timeout_s=120)["records"]]
+        want_ids = [w["ids"] for w in expected]
+        if got_ids != want_ids:
+            diff = [i for i, (a, b) in enumerate(zip(got_ids, want_ids))
+                    if a != b]
+            first = [got_ids[i][:1] == want_ids[i][:1] for i in diff]
+            fail(f"15b: the decode replica's token ids differ from "
+                 f"in-process serving in requests {diff} (of "
+                 f"{len(got_ids)}; first tokens equal: {first}; prefill_batch "
+                 f"at B = 1 vs decoding.prefill: "
+                 f"{[ref['prefill_batch_vs_prefill'][i] for i in diff]})")
+        for i, ((_, body), want) in enumerate(zip(seq, expected)):
+            if body["choices"][0]["text"] != want["text"]:
+                fail(f"15b: request {i}'s text differs from in-process "
+                     f"serving")
+        out["15b"] = {"latency_s": [s for s, _ in seq],
+                      "ttft_s": [b["usage"]["ttft_s"] for _, b in seq],
+                      "total_time_s": [b["usage"]["total_time_s"]
+                                       for _, b in seq]}
+
+        # 15c: the 8 prompts at once plus one SSE stream; that stream
+        # alone; then a client dropped after its first chunk
+        body_of = [{"prompt": t, "max_tokens": HTTP_MAX_TOKENS,
+                    "temperature": 0.0} for t in prompts]
+        results: list = [None] * (len(prompts) + 1)
+
+        def call(i):
+            if i < len(prompts):
+                results[i] = http_post(port, "/pd", body_of[i])
+            else:
+                results[i] = http_sse(port, "/pd",
+                                      body_of[HTTP_STREAM_PROMPT])
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(results))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wave_s = time.perf_counter() - t0
+        if any(r is None for r in results):
+            fail("15c: a concurrent request did not return")
+        for i, (s, status, body) in enumerate(results[:-1]):
+            bad = pd_shape(body) if status == 200 else f"HTTP {status}"
+            if bad:
+                fail(f"15c: request {i}: {bad}")
+        agree = [body["choices"][0]["text"] == w["text"]
+                 for (_, _, body), w in zip(results[:-1], expected)]
+        wave_ttft, wave_stream_s, st, chunks = results[-1]
+        wave_text, wave_n = sse_joined(chunks, st, "concurrent")
+        ttft, stream_s, st, chunks = http_sse(port, "/pd",
+                                              body_of[HTTP_STREAM_PROMPT])
+        alone_text, alone_n = sse_joined(chunks, st, "lone")
+        want = expected[HTTP_STREAM_PROMPT]
+        if alone_text != want["text"] or alone_n != len(want["ids"]):
+            fail(f"15c: the lone stream's chunks ({alone_n} tokens) do not "
+                 f"join to its prompt's non-streamed text "
+                 f"({len(want['ids'])} tokens)")
+        tokens = sum(b["usage"]["completion_tokens"]
+                     for _, _, b in results[:-1]) + wave_n
+        # the drop: the longest prompt (a threaded transfer), a budget that
+        # keeps it decoding well past its first chunk
+        idle = dec.probe_state.remote().result(timeout_s=120)
+        aborts0 = idle["stats"]["aborts"]
+        drop_ttft = sse_drop(port, "/pd", {
+            "prompt": prompts[-1], "max_tokens": PD_DROP_TOKENS,
+            "temperature": 0.0})
+        t_drop = time.perf_counter()
+        deadline = time.monotonic() + PD_WAIT_S_HTTP
+        while True:
+            d = dec.engine_stats.remote().result(timeout_s=120)
+            p = pre.transfer_stats.remote().result(timeout_s=120)
+            back = (d["free_slots"] == d["max_slots"]
+                    and d["free_pages"] == d["num_pages"] - 1
+                    and d["pulls_in_flight"] == 0
+                    and p["pending_transfers"] == 0
+                    and d["aborts"] > aborts0)
+            if back:
+                break
+            if time.monotonic() > deadline:
+                fail(f"15c: {PD_WAIT_S_HTTP} s after the drop the decode "
+                     f"pool is {d} and the prefill side {p} (aborts "
+                     f"before the drop {aborts0})")
+            time.sleep(0.05)
+        out["15c"] = {
+            "wave_s": wave_s, "latency_s": [r[0] for r in results[:-1]],
+            "stream_s": wave_stream_s, "stream_ttft_s": wave_ttft,
+            "tokens": tokens, "tokens_per_s": tokens / wave_s,
+            "agree_with_15b_text": agree,
+            "stream_agrees_with_15b": wave_text == want["text"],
+            "lone_stream_ttft_s": ttft, "lone_stream_s": stream_s,
+            "drop_ttft_s": drop_ttft,
+            "drop_to_reclaimed_s": time.perf_counter() - t_drop,
+            "aborts": d["aborts"] - aborts0}
+
+        # 15d: one sampled request's span tree over the processes
+        rpc = _get_worker().rpc
+
+        def rows(component):
+            return [r for r in rpc({"type": "list_requests"}).get(
+                "requests", []) if r.get("component") == component]
+
+        # the proxy stamps a row's ts when the request arrives: the only
+        # /pd row from after t_sent is this request's
+        t_sent = time.time()
+        s, status, body = http_post(port, "/pd", body_of[0])
+        if status != 200 or pd_shape(body):
+            fail(f"15d: HTTP {status} {pd_shape(body)}")
+        deadline = time.monotonic() + PD_WAIT_S_HTTP
+        while True:
+            new = [r for r in rows("http_proxy")
+                   if r.get("path") == "/pd" and r["ts"] >= t_sent]
+            if new:
+                break
+            if time.monotonic() > deadline:
+                fail("15d: no flight-recorder row of the sampled request")
+            time.sleep(0.2)
+        rid = new[-1]["request_id"]
+        names, spans = set(), []
+        while True:
+            tree = tracing.get_trace(rid)
+            spans = []
+            stack = [tree["root"]] if tree else []
+            while stack:
+                sp = stack.pop()
+                spans.append(sp)
+                stack.extend(sp.get("children", ()))
+            names = {sp.get("name") for sp in spans}
+            pd_row = [r for r in rows("pd_proxy") if r["request_id"] == rid]
+            if PD_SPANS <= names and pd_row:
+                break
+            if time.monotonic() > deadline:
+                fail(f"15d: the trace of {rid} holds {sorted(names)}, "
+                     f"pd_proxy rows {pd_row}")
+            time.sleep(0.3)
+        pids = {sp.get("pid") for sp in spans if sp.get("pid")}
+        if len(pids) < 3:
+            fail(f"15d: the span tree spans {len(pids)} processes")
+        phases = pd_row[-1].get("phases") or {}
+        if not {"prefill", "decode_first_token"} <= set(phases):
+            fail(f"15d: the pd_proxy row's phases {phases}")
+        out["15d"] = {"spans": sorted(n for n in names if n),
+                      "processes": len(pids), "pd_proxy_phases": phases}
+
+        # 15e: the launches of 15b-15d, counted in each replica
+        probes = {"prefill": pre.probe_state.remote().result(timeout_s=120),
+                  "decode": dec.probe_state.remote().result(timeout_s=120),
+                  "proxy": proxy.probe_state.remote().result(timeout_s=120)}
+        n_layers = probes["prefill"]["n_layers"]
+        if n_layers != 32 or probes["decode"]["n_layers"] != 32:
+            fail(f"15e: the replicas' models have {n_layers} and "
+                 f"{probes['decode']['n_layers']} layers, not 32")
+        forwards = probes["prefill"]["counts"]["forwards"]
+        steps = probes["decode"]["counts"]["decode_steps"]
+        want_l = {"prefill": {"flash_attention_fwd_bf16": 32 * forwards},
+                  "decode": {"ragged_paged_attention_bf16": 32 * steps},
+                  "proxy": {}}
+        for r, p in probes.items():
+            for sym, n in p["launches"].items():
+                if n != want_l[r].get(sym, 0):
+                    fail(f"15e: {sym} launched {n} times in the {r} "
+                         f"replica, expected {want_l[r].get(sym, 0)} "
+                         f"({forwards} prefill forwards, {steps} decode "
+                         f"steps)")
+        if probes["decode"]["counts"]["prefills"]:
+            fail(f"15e: the decode engine ran "
+                 f"{probes['decode']['counts']['prefills']} prefills")
+        if probes["proxy"]["cuda_initialized"]:
+            fail("15e: the PD proxy replica holds a CUDA context")
+        out["launches"] = {
+            sym: probes["prefill"]["launches"][sym]
+            + probes["decode"]["launches"][sym]
+            for sym in probes["prefill"]["launches"]}
+        out["15e"] = {"launches_by_replica": {r: p["launches"]
+                                              for r, p in probes.items()},
+                      "prefill_forwards": forwards,
+                      "prefill_jobs": probes["prefill"]["counts"]["jobs"],
+                      "decode_steps": steps}
+
+        # 15f: the halves of TTFT, and the plane's pages and GB/s
+        transfers = probes["decode"]["transfers"]
+        moved = sum(t["bytes"] for t in transfers)
+        pd_rows = sorted((r for r in rows("pd_proxy") if r["status"] == 200),
+                         key=lambda r: r["ts"])[:len(prompts)]
+        out["15f"] = {
+            "prefill_ttft_s": out["15b"]["ttft_s"],
+            "decode_first_token_s": [r["phases"]["decode_first_token"]
+                                     for r in pd_rows],
+            "transfers": len(transfers),
+            "pages": sum(t["pages"] for t in transfers),
+            "bytes": moved,
+            "plane_GBps": moved / max(sum(t["s"] for t in transfers), 1e-9)
+            / 1e9}
+        serve.shutdown()
+        left = {p for g in segs for p in glob.glob(g)} - before
+        if left:
+            fail(f"15g: after serve.shutdown() shm segments are left: "
+                 f"{sorted(left)}")
+    finally:
+        rt.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig.reset()
+    # 15g: nothing of the session is left
+    left = ({p for g in segs for p in glob.glob(g)} - before) | set(
+        glob.glob(f"/dev/shm/rtpt_{sid}*"))
+    if left:
+        fail(f"15g: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    a, b, c, f = out["15a"], out["15b"], out["15c"], out["15f"]
+    c14 = phase14["14c"]
+
+    def ms(xs):  # the cold first request, then the median of the rest
+        warm = sorted(xs[1:])
+        return f"{xs[0] * 1e3:.3f} first, {warm[len(warm) // 2] * 1e3:.3f}"
+    print(f"serve PD over HTTP on {card}: serve.run to the first probe "
+          f"passed {', '.join(f'{n} {s:.3f}' for n, s in a['serve_run_to_first_probe_passed_s'].items())} s; "
+          f"sequential latency {min(b['latency_s']):.3f}-"
+          f"{max(b['latency_s']):.3f} s (phase 14 "
+          f"{min(phase14['14b']['latency_s']):.3f}-"
+          f"{max(phase14['14b']['latency_s']):.3f}), TTFT halves prefill "
+          f"{ms(f['prefill_ttft_s'])} ms, decode first token "
+          f"{ms(f['decode_first_token_s'])} ms (warm medians); "
+          f"concurrent {min(c['latency_s']):.3f}-{max(c['latency_s']):.3f} "
+          f"s, {c['tokens_per_s']:.1f} tokens/s (phase 14 "
+          f"{c14['tokens_per_s']:.1f}); lone SSE TTFT "
+          f"{c['lone_stream_ttft_s'] * 1e3:.3f} ms (phase 14 "
+          f"{c14['lone_stream_ttft_s'] * 1e3:.3f}); plane {f['pages']} pages, "
+          f"{f['plane_GBps']:.3f} GB/s; drop reclaimed in "
+          f"{c['drop_to_reclaimed_s']:.3f} s; phase 15 took "
+          f"{out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -3009,7 +3641,7 @@ def main() -> int:
                 **{f"engine_{r}": {} for r in ENGINE_RUNS},
                 "pd_monolithic": {}, "pd_handoff": {},
                 "pd_coalesced_prefill": {}, "worker_kernels": {},
-                "actor_serve": {}, "serve_http": {},
+                "actor_serve": {}, "serve_http": {}, "serve_pd_http": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -3087,8 +3719,10 @@ def main() -> int:
         pd = serve_pd(torch, all_kernels, card, cfg8b, params8b)
         for path in ("pd_monolithic", "pd_handoff", "pd_coalesced_prefill"):
             launches[path] = pd[path]
-        # phase 14's expected responses, on the same weights
+        # phase 14's and 15's expected responses, on the same weights
         expected14 = http_expected(torch, cfg8b, params8b)
+        expected15 = pd_expected(torch, cfg8b, params8b)
+        fps10 = weight_fingerprints(torch, params8b)
         del params8b
         gc.collect()  # engines that hold the 8B weights in reference cycles
         torch.cuda.empty_cache()
@@ -3105,6 +3739,15 @@ def main() -> int:
                           expected14)
         launches["serve_http"] = http["launches"]
         print(json.dumps({"card": card, "serve_http": http}), flush=True)
+        # phase 15: Llama-3-8B disaggregated over HTTP, two replicas on
+        # the card, in a fresh session
+        pd_http = serve_pd_http(torch, ray_tpu_torch, card, serving, http,
+                                fps10, expected15)
+        launches["serve_pd_http"] = pd_http["launches"]
+        print(json.dumps({"card": card, "serve_pd_http": pd_http,
+                          "prefill_batch_vs_prefill":
+                          expected15["prefill_batch_vs_prefill"]}),
+              flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

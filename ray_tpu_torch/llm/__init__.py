@@ -1,7 +1,7 @@
 """ray_tpu_torch.llm — LLM serving on the GPU (PyTorch/CUDA port of
-ray_tpu.llm): the engine, the PD plane below Serve (kv_transfer, pd), and
-the OpenAI server on Serve (server). The PD deployments and the batch
-processor are not ported yet."""
+ray_tpu.llm): the engine, the PD plane (kv_transfer) and its deployments
+on Serve (pd), and the OpenAI server on Serve (server). The batch
+processor is not ported yet."""
 
 from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
 
@@ -10,6 +10,7 @@ from ray_tpu_torch.llm.config import (LLMConfig, LoraConfig,
 from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
 from ray_tpu_torch.llm.guided import GuidedFSM
 from ray_tpu_torch.llm.kv_transfer import KVTransferError, PagedKVExporter
+from ray_tpu_torch.llm.pd import build_pd_openai_app
 from ray_tpu_torch.llm.server import LLMServer, build_openai_app
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer, load_tokenizer
 
@@ -26,5 +27,6 @@ __all__ = [
     "PagedKVExporter",
     "SamplingParams",
     "build_openai_app",
+    "build_pd_openai_app",
     "load_tokenizer",
 ]

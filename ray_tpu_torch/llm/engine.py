@@ -70,6 +70,7 @@ import collections
 import dataclasses
 import hashlib
 import itertools
+import logging
 import queue
 import sys
 import threading
@@ -88,6 +89,8 @@ from ray_tpu_torch.ops import flash_attention
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import (MESH_AXIS_TP, axis_rank,
                                          mesh_shape, use_mesh)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass
@@ -129,8 +132,12 @@ class _Request:
     # streamed admission the kv_transfer.KVPageStream still being fed
     kv_pack: dict | None = None
     kv_stream: object | None = None
-    # wall clock of the slot's activation
+    # request-phase stamps (wall clock): submit → slot bind is the
+    # admission wait, _emit times the inter-token gap off last_emit_ts;
+    # llm/pd.py's decode_stream reads them for retroactive spans
+    submitted_ts: float = 0.0
     admitted_ts: float = 0.0
+    last_emit_ts: float = 0.0
 
     def __iter__(self):
         """Yield generated tokens as they are produced."""
@@ -447,6 +454,7 @@ class LLMEngine:
         self._agreed_aborts = 0
         self._count_lock = threading.Lock()
         self._now = time.time()  # the pass's clock (agreed under a mesh)
+        self._init_phase_metrics()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine")
         self._thread.start()
@@ -481,6 +489,34 @@ class LLMEngine:
                    lora_rank=ek.get(
                        "lora_rank", lora_cfg.lora_rank if lora_cfg else 8),
                    device=ek.get("device"))
+
+    def _init_phase_metrics(self) -> None:
+        """Serving-phase instrumentation, resolved once per engine: the
+        slot admission wait and the inter-token gap (Serve's
+        ``ray_tpu_llm_engine_phase_seconds``), and for the paged layout the
+        decode step's wall time by attention impl. None when
+        ``serve_metrics`` is off."""
+        self._phase_admit = self._phase_gap = self._step_obs = None
+        try:
+            from ray_tpu_torch.serve import request_context as _rc
+            from ray_tpu_torch.util import metrics as met
+
+            self._phase_admit = _rc.phase_observer(_rc.ENGINE_PHASE,
+                                                   "admission_wait")
+            self._phase_gap = _rc.phase_observer(_rc.ENGINE_PHASE,
+                                                 "inter_token")
+            if self.kv_layout == "paged" and _rc.metrics_enabled():
+                h = met.get_or_create(
+                    met.Histogram, "ray_tpu_llm_decode_step_seconds",
+                    "paged decode step wall time (device step + sampling "
+                    "sync) by attention impl (ragged|gather)",
+                    boundaries=[0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+                                0.05, 0.1, 0.25, 0.5, 1.0],
+                    tag_keys=("impl",))
+                self._step_obs = h.bind({"impl": self.attn_impl})
+        except Exception as e:  # metrics must never gate the engine's boot
+            logger.debug("engine phase metrics unavailable: %r", e)
+            self._phase_admit = self._phase_gap = self._step_obs = None
 
     def _check_alive(self):
         if self._error is not None:
@@ -628,6 +664,7 @@ class LLMEngine:
         req = _Request(next(self._rid), token_ids, params,
                        history=list(token_ids), lora_idx=lora_idx,
                        deadline_ts=float(deadline_ts or 0.0))
+        req.submitted_ts = time.time()
         self._enqueue(req)
         return req
 
@@ -728,6 +765,7 @@ class LLMEngine:
                 f"does not fit engine max_len {self.max_len}")
         req = _Request(next(self._rid), [], params,
                        deadline_ts=float(deadline_ts or 0.0))
+        req.submitted_ts = time.time()
         pack = {"length": int(length), "first_token": int(first_token)}
         if kv_stream is not None:
             req.kv_stream = kv_stream
@@ -932,6 +970,10 @@ class LLMEngine:
         length mirrored host-side for the ragged step's page bound."""
         req.length0 = int(length)
         req.admitted_ts = time.time()
+        if self._phase_admit is not None and req.submitted_ts:
+            # submit → slot bind: the waiting queue, the page-pressure
+            # backlog and (PD) the page pull
+            self._phase_admit.observe(req.admitted_ts - req.submitted_ts)
         self._set_row_sampling(slot, req.params)
         if self.lora_bank is not None:
             self._slot_lora[slot] = req.lora_idx
@@ -1490,6 +1532,12 @@ class LLMEngine:
     # ------------------------------------------------------------ emit/release
 
     def _emit(self, req: _Request, token_id: int):
+        if self._phase_gap is not None:
+            now = time.time()
+            last = req.last_emit_ts or req.admitted_ts
+            if last:
+                self._phase_gap.observe(now - last)
+            req.last_emit_ts = now
         req.generated += 1
         req.history.append(token_id)
         if self.speculative_k and req.ngram_index is not None:
@@ -1524,6 +1572,16 @@ class LLMEngine:
 
     # -------------------------------------------------- cancellation plane
 
+    def _count_cancel(self) -> None:
+        self.aborts += 1
+        try:
+            from ray_tpu_torch.serve import request_context as _rc
+
+            _rc.count_cancellation("engine")
+        except Exception as e:  # metrics must never kill the scheduler
+            # (every in-flight request would die)
+            logger.debug("cancellation metric failed: %r", e)
+
     def _abort_one(self, req: _Request, err: BaseException) -> bool:
         """Reclaim one request wherever it lives (active slot, staged
         chunked prefill, page-pressure backlog) and surface `err` to its
@@ -1531,9 +1589,10 @@ class LLMEngine:
         if req.slot >= 0 and self._by_slot.get(req.slot) is req:
             self._release_active(req)
         elif req in self._streaming:
-            # _fail_stream reclaims and puts its own _RequestError
+            # _fail_stream reclaims and puts its own _RequestError; counted
+            # first, so a caller that sees the error reads the count too
+            self._count_cancel()
             self._fail_stream(req, err)
-            self.aborts += 1
             return True
         elif req in self._prefilling:
             self._prefilling.remove(req)
@@ -1546,8 +1605,8 @@ class LLMEngine:
             self._lora_release(req)
         else:
             return False
+        self._count_cancel()
         req.out_queue.put(_RequestError(err))
-        self.aborts += 1
         return True
 
     def _apply_aborts(self, now: float) -> None:
@@ -1588,8 +1647,8 @@ class LLMEngine:
         else:
             return False
         self._lora_release(req)
+        self._count_cancel()
         req.out_queue.put(_RequestError(err))
-        self.aborts += 1
         return True
 
     # ------------------------------------------------------------------ loop
@@ -1704,6 +1763,9 @@ class LLMEngine:
         self.decode_steps += 1
         self.decode_slot_steps += len(self._by_slot)
         self.decode_seconds += time.perf_counter() - t_step
+        if self._step_obs is not None:
+            # device step + sampling sync, by attention impl
+            self._step_obs.observe(time.perf_counter() - t_step)
         for slot, req in list(self._by_slot.items()):
             self._emit(req, int(toks_host[slot]))
         return True

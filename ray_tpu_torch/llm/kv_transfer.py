@@ -27,9 +27,11 @@ the page so bf16 needs no buffer protocol of its own. The header carries
 the torch dtype's name. A page read off the channel is cloned before the
 ack, since the writer may overwrite the buffer after it.
 
-Both ends share one host (/dev/shm). The request-phase histograms and
-tracing spans of the JAX package's plane belong to Serve's request context
-and land with the Serve layer's port.
+Both ends share one host (/dev/shm). A sampled request's ``pd:kv_send``
+span rides the transfer (``export(..., trace_ctx=)``), and the plane
+observes its channel waits (``transfer_send_wait``, ``transfer_wait``) in
+Serve's ``ray_tpu_llm_pd_phase_seconds``; both are imported lazily, so the
+plane runs without Serve.
 """
 
 from __future__ import annotations
@@ -150,13 +152,18 @@ def _closed_after(tid: str, done: int, n: int) -> KVTransferError:
 
 
 class _Transfer:
-    __slots__ = ("ticket_id", "channel", "thread", "failed", "created")
+    __slots__ = ("ticket_id", "channel", "thread", "failed", "trace_ctx",
+                 "created")
 
-    def __init__(self, ticket_id: str, channel: MutableShmChannel):
+    def __init__(self, ticket_id: str, channel: MutableShmChannel,
+                 trace_ctx: dict | None = None):
         self.ticket_id = ticket_id
         self.channel = channel
         self.thread: threading.Thread | None = None  # None = sync transfer
         self.failed: str | None = None
+        # sampled request's span context, captured at export: the sender
+        # thread runs outside the request's contextvar scope
+        self.trace_ctx = trace_ctx
         self.created = time.monotonic()
 
 
@@ -193,11 +200,13 @@ class PagedKVExporter:
 
     # ------------------------------------------------------------- export
 
-    def export(self, k, v, length: int, first_token: int,
-               page_size: int) -> dict:
+    def export(self, k, v, length: int, first_token: int, page_size: int,
+               trace_ctx: dict | None = None) -> dict:
         """Slice a bucketed prompt KV (``[L, T, Hkv, Dh]`` tensors on the
         card or the host, T a multiple of ``page_size``) into pages and
-        start streaming them. Returns the ticket for the decode side."""
+        start streaming them. Returns the ticket for the decode side.
+        ``trace_ctx`` (a sampled request's span context) makes the send
+        emit a ``pd:kv_send`` span covering the whole transfer."""
         k = torch.as_tensor(k).detach()
         v = torch.as_tensor(v).detach()
         L, T = k.shape[0], k.shape[1]
@@ -219,8 +228,9 @@ class PagedKVExporter:
         # channel; the reaper sweeps never-pulled sync channels
         sync = n_pages <= depth and not self.page_interval_s
         try:
-            tr = _Transfer(tid, ch)
+            tr = _Transfer(tid, ch, trace_ctx)
             if sync:
+                t_send0 = time.time()
                 kps, vps = _pages(k, v, 0, n_pages, page_size)
                 ch.write_vectored(_pack_page_message(0, kps, vps), timeout=0)
                 self._m_bytes.inc(k.nbytes + v.nbytes)
@@ -228,6 +238,15 @@ class PagedKVExporter:
                 with self._lock:
                     self._live[tid] = tr
                 self._arm_reap_timer()
+                if trace_ctx:
+                    from ray_tpu_torch.util import tracing
+
+                    # the send happened right here (inline single-message
+                    # write): the same span name the sender thread emits
+                    tracing.emit_span_for(
+                        trace_ctx, "pd:kv_send", t_send0, time.time(),
+                        ok=True, ticket=tid, pages=n_pages, failed="",
+                        sync=True)
             else:
                 with self._lock:
                     self._live[tid] = tr
@@ -259,16 +278,25 @@ class PagedKVExporter:
         }
 
     def _send(self, tr: _Transfer, k, v, page_size: int, n_pages: int):
+        from ray_tpu_torch.serve import request_context as rc
+
         ch = tr.channel
         depth = min(self.prefetch_pages, n_pages)
+        t_send0 = time.time()
         try:
             for start in range(0, n_pages, depth):
                 m = min(depth, n_pages - start)
                 kps, vps = _pages(k, v, start, m, page_size)
                 if self.page_interval_s:
                     time.sleep(self.page_interval_s)
+                t_w = time.perf_counter()
                 ch.write_vectored(_pack_page_message(start, kps, vps),
                                   timeout=self.send_timeout_s)
+                # the seqlock write blocks until the reader consumed the
+                # previous message: how long the handoff serialised on the
+                # decode side
+                rc.observe_phase(rc.PD_PHASE, "transfer_send_wait",
+                                 time.perf_counter() - t_w)
                 self._m_bytes.inc(sum(p.nbytes for p in kps + vps))
                 self._m_pages.inc(m)
             # the final message is published but possibly unread: wait for
@@ -293,6 +321,13 @@ class PagedKVExporter:
                 if tr.failed is not None:
                     self.failures += 1
                     self.last_failure = f"{tr.ticket_id}: {tr.failed}"
+            if tr.trace_ctx:
+                from ray_tpu_torch.util import tracing
+
+                tracing.emit_span_for(
+                    tr.trace_ctx, "pd:kv_send", t_send0, time.time(),
+                    ok=tr.failed is None, ticket=tr.ticket_id,
+                    pages=n_pages, failed=tr.failed or "")
 
     # ---------------------------------------------------------- lifecycle
 
@@ -401,6 +436,8 @@ def pull_pages(ticket: dict, timeout_s: float = 60.0):
     ``(index, k_page, v_page)`` in order (each ``[L, page_size, Hkv, Dh]``
     CPU tensors). Every failure surfaces as KVTransferError naming the
     ticket: the per-request error contract."""
+    from ray_tpu_torch.serve import request_context as rc
+
     tid = ticket.get("ticket", "?")
     try:
         ch = MutableShmChannel(ticket["path"], ticket["capacity"])
@@ -409,6 +446,7 @@ def pull_pages(ticket: dict, timeout_s: float = 60.0):
     i = 0
     try:
         while i < ticket["n_pages"]:
+            t_r = time.perf_counter()
             try:
                 view = ch.read_view(timeout=timeout_s)
             except ChannelClosed:
@@ -417,6 +455,10 @@ def pull_pages(ticket: dict, timeout_s: float = 60.0):
                 raise KVTransferError(
                     f"kv transfer {tid}: timed out waiting for page {i} of "
                     f"{ticket['n_pages']} after {timeout_s}s") from None
+            # how long decode admission stalled on the plane for this
+            # prefetch window
+            rc.observe_phase(rc.PD_PHASE, "transfer_wait",
+                             time.perf_counter() - t_r)
             pages = _copy_pages(*_unpack_page_view(view))
             del view  # release the export before the mapping can close
             ch.ack_read()
@@ -668,9 +710,15 @@ class BatchedKVPuller:
     def _sweep_one(self, p: _Pull, now: float) -> bool:
         """Drain every message ready on one channel; True if any page
         moved."""
+        from ray_tpu_torch.serve import request_context as rc
+
         progressed = False
         while p.channel.poll():
             view = p.channel.read_view(timeout=0)
+            # how long the decode side had this transfer stalled before the
+            # window arrived
+            rc.observe_phase(rc.PD_PHASE, "transfer_wait",
+                             time.monotonic() - p.last_progress)
             start, kviews, vviews = _unpack_page_view(view)
             n = len(kviews)
             pages = (_copy_pages(start, kviews, vviews)

@@ -271,6 +271,10 @@ _ALLOWED = {
     ("guarded-attr", "serve/replica.py", "ReplicaActor.ongoing"),
     ("guarded-attr", "serve/replica.py", "ReplicaActor.stats"),
     ("silent-swallow", "llm/server.py", "_AdapterHandle.__del__"),
+    # the PD deployments (baseline.txt's llm/pd.py entries): GC finalizers
+    # whose teardown must never raise into GC
+    ("silent-swallow", "llm/pd.py", "DecodeServer.__del__"),
+    ("silent-swallow", "llm/pd.py", "PrefillServer.__del__"),
     ("silent-swallow", "serve/api.py", "shutdown"),
     ("silent-swallow", "serve/controller.py", "ServeController._kill_replica"),
     ("silent-swallow", "serve/controller.py", "ServeController._probe_health"),
@@ -282,8 +286,8 @@ _ALLOWED = {
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
-# the transfer plane, PD and channel modules, the runtime core's host
-# modules, Serve and the LLM server
+# the transfer plane, PD (below Serve and its deployments) and channel
+# modules, the runtime core's host modules, Serve and the LLM server
 _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "events", "fixed_point", "gcs", "gcs_storage", "ids",
             "local_mode", "log_monitor", "memory_monitor", "node",

@@ -23,7 +23,6 @@ ALLOWED = {
     "llm": {
         "Processor": "item 9d",
         "build_llm_processor": "item 9d",
-        "build_pd_openai_app": "item 9c",
         "TPUEngine": "rename: LLMEngine",
         "LLMEngine": "rename of TPUEngine",
         "LoraConfig": "port: exported (the reference keeps it in "
