@@ -256,6 +256,36 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       or ``rtpt_chan_*`` segment made during the phase, and none of the
       session, is left.
 
+16. Llama-3-8B batch inference over Data, and Data onto the card (a new
+   runtime session, after phase 15, before phase 11):
+   ``RAY_TPU_TORCH_WORKER_PLATFORM=cuda`` before ``init``, so that the
+   processor's engine actor, which asks for no GPU, sees the card, and a
+   store large enough for 16b's blocks; both restored after.
+   a. ``build_llm_processor`` with phase 14's config (Llama-3-8B at full
+      width, bf16, seed 0, phase 4's engine options), ``concurrency=1``,
+      greedy with 32 tokens and the byte EOS; its actor class swapped for
+      a probing subclass defined here. The actor's weights equal phase
+      4's. 1: phase 14's 8 prompts at ``batch_size=1``: the ids read in
+      the actor and the text equal in-process serving of each prompt
+      alone. 2: a 64-row JSONL of byte-text prompts (lengths drawn from
+      phase 4's mix) through ``read_json`` → ``map`` → the processor at
+      ``batch_size=16`` → ``map`` → ``write_json``, read back: 64 rows, the
+      input columns intact, each row's text the decode of ids the actor
+      generated; how many rows equal an in-process engine fed the same
+      batches is reported, not held (bf16 ids move with batch
+      composition). 3: the actor's time to ready, rows/s and generated
+      tokens/s; launches in the actor: flash forward 32 x its prefills,
+      ragged 32 x its decode steps, no backward, and none in the driver.
+   b. 4,096 uint8 rows of [224, 224, 3] (0.6 GB, numpy seed) through
+      ``from_numpy`` in 16 blocks of 256; a ``map_batches`` stage of a
+      callable class with ``num_gpus=1`` and ``concurrency=1`` normalizes
+      each batch on the card and in numpy in its worker: one device
+      visible, within 1e-6. Then ``iter_device_batches(device="cuda",
+      prefetch=2)`` gives the batches on the driver's card, byte-exact to
+      the host batches; GB/s and the consumer's wait per batch, beside a
+      plain synchronous copy of the same batches.
+   After ``shutdown()`` no segment of the session is left.
+
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3231,6 +3261,514 @@ def serve_pd_http(torch, rt, card: str, phase4: dict, phase14: dict,
     return out
 
 
+# ----------------------------------------------------------------- phase 16
+
+BATCH_ENV = {
+    # the processor's engine actor asks for no GPU, as in the JAX package:
+    # it reaches the card as the PD pools do
+    "RAY_TPU_TORCH_WORKER_PLATFORM": "cuda",
+    # 16b keeps ~6 GB of blocks in the store: inputs, their union, the GPU
+    # stage's f32 outputs and their materialized copy
+    "RAY_TPU_TORCH_STORE_CAPACITY": str(12 << 30)}
+BATCH_ROWS = 64                 # 16a's JSONL rows
+BATCH_SIZE = 16                 # 16a's processor batch
+IMG_SHAPE = (224, 224, 3)       # 16b's uint8 image rows
+IMG_BATCH = 256
+IMG_BATCHES = 16
+IMG_MEAN = (0.485, 0.456, 0.406)
+IMG_STD = (0.229, 0.224, 0.225)
+NORM_TOL = 1e-6                 # the card's f32 normalization vs numpy's
+
+
+def batch_texts() -> list[str]:
+    """16a's 64 JSONL prompts: printable ASCII whose byte tokens (with BOS)
+    have lengths drawn from phase 4's mix."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 16)
+    lengths = rng.choice(SERVE_LENGTHS, size=BATCH_ROWS)
+    return ["".join(chr(c) for c in rng.integers(32, 127, size=n - 1))
+            for n in lengths]
+
+
+def batch_sampling() -> dict:
+    """The processor's sampling: phase 14's (greedy, 32 tokens, the byte
+    EOS as stop token)."""
+    from ray_tpu_torch.llm import ByteTokenizer
+
+    return {"max_tokens": HTTP_MAX_TOKENS, "temperature": 0.0,
+            "stop_token_ids": (ByteTokenizer().eos_token_id,)}
+
+
+def batch_expected(torch, cfg, params) -> list[list[int]]:
+    """The ids of 16a's 64 rows from an in-process LLMEngine on phase 10's
+    weights with phase 4's engine options, fed as the processor feeds its
+    actor: each batch of BATCH_SIZE rows submitted together (the scheduler
+    held until all are in), one batch after the other. Run while phase
+    10's model is alive."""
+    from ray_tpu_torch.llm import ByteTokenizer, LLMConfig, LLMEngine
+    from ray_tpu_torch.llm import SamplingParams
+
+    built = LLMConfig(engine_kwargs=http_engine_kwargs())
+    built.build_model = lambda device=None: (cfg, params)
+    tok = ByteTokenizer()
+    sp = SamplingParams(**batch_sampling())
+    texts = batch_texts()
+    eng = LLMEngine.from_config(built)
+    out = []
+    try:
+        for i in range(0, len(texts), BATCH_SIZE):
+            gate = hold_admission(eng)
+            reqs = [eng.submit(tok.encode(t), sp)
+                    for t in texts[i:i + BATCH_SIZE]]
+            gate.set()
+            out += [list(r) for r in reqs]
+    finally:
+        eng.shutdown()
+    return out
+
+
+def batch_probe(base, prepare=None):
+    """The processor's engine actor class with probes, for 16a: when its
+    process started, when CUDA was ready and when the model was built; the
+    prompt and generated ids of every request, read in the actor as its
+    generate_batch consumes them; its launch counts, engine stats and
+    weight fingerprints. Defined here, so nothing is added to the
+    package; pickled by value into the actor."""
+
+    class Tap:
+        """A request's token queue that records what its reader takes."""
+
+        def __init__(self, q, rec, done, error):
+            self.q, self.rec, self.done, self.error = q, rec, done, error
+
+        def put(self, x):
+            self.q.put(x)
+
+        def get(self, *a, **kw):
+            x = self.q.get(*a, **kw)
+            if x is not self.done and not isinstance(x, self.error):
+                self.rec.append(int(x))  # a token id
+            return x
+
+    class ProbeWorker(base):
+        def __init__(self, blob):
+            import os
+            import time
+
+            t_enter = time.time()
+            started = process_start_time()
+            if prepare is not None:
+                prepare()
+            import torch
+
+            torch.empty(1, device=torch.device("cuda"))
+            torch.cuda.synchronize()
+            t_cuda = time.time()
+            super().__init__(blob)
+            torch.cuda.synchronize()
+            self.probe = {"process_start": started, "init_enter": t_enter,
+                          "cuda_ready": t_cuda, "model_built": time.time(),
+                          "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                          "device_count": torch.cuda.device_count(),
+                          "pid": os.getpid(),
+                          "error": None if self.error is None
+                          else repr(self.error)}
+            self.records: list = []
+            if self.error is None:
+                from ray_tpu_torch.llm import engine as eng_mod
+
+                submit = self.engine.submit
+
+                def recorded(ids, params=None, **kw):
+                    req = submit(ids, params, **kw)
+                    rec = {"prompt": list(ids), "ids": []}
+                    self.records.append(rec)
+                    req.out_queue = Tap(req.out_queue, rec["ids"],
+                                        eng_mod._SENTINEL,
+                                        eng_mod._EngineError)
+                    return req
+
+                self.engine.submit = recorded
+
+        def probe_state(self, zero_counts: bool = False) -> dict:
+            from ray_tpu_torch.ops import flash_attention as fa
+            from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+            kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+            out = {"launches": {k.symbol: k.launches for k in kernels},
+                   "stats": self.engine.stats() if self.error is None
+                   else {}, "records": list(self.records), **self.probe,
+                   "n_layers": self.engine.cfg.n_layers
+                   if self.error is None else None}
+            if zero_counts:
+                for k in kernels:
+                    k.launches = 0
+                self.records.clear()
+            return out
+
+        def probe_fingerprints(self) -> dict:
+            import torch
+
+            return weight_fingerprints(torch, self.engine.params)
+
+    return ProbeWorker
+
+
+def batch_launch_gate(where: str, probe: dict, stats0: dict) -> dict:
+    """The launches counted in the actor since its counts were zeroed must
+    be 32 flash forwards a prefill and 32 ragged decodes a decode step, and
+    no backward; returns the prefill and step counts."""
+    st = probe["stats"]
+    prefills = st["prefills"] - stats0["prefills"]
+    steps = st["decode_steps"] - stats0["decode_steps"]
+    L = probe["n_layers"]
+    want = {"flash_attention_fwd_bf16": L * prefills,
+            "ragged_paged_attention_bf16": L * steps}
+    for sym, n in probe["launches"].items():
+        if n != want.get(sym, 0):
+            fail(f"{where}: {sym} launched {n} times in the actor, expected "
+                 f"{want.get(sym, 0)} ({prefills} prefills, {steps} decode "
+                 f"steps)")
+    if not prefills or not steps:
+        fail(f"{where}: the actor ran {prefills} prefills and {steps} decode "
+             f"steps")
+    return {"prefills": prefills, "decode_steps": steps}
+
+
+def batch_llm(torch, rt, card: str, phase4: dict, expected14: list[dict],
+              expected16: list[list[int]], prepare=None) -> dict:
+    """16a: build_llm_processor on Llama-3-8B over Data, in a session
+    whose workers see the card. 16a.1 phase 14's prompts at batch_size 1,
+    token-exact to in-process serving; 16a.2 read_json → map(preprocess)
+    → the processor (batch_size 16) → map(postprocess) → write_json, read
+    back; 16a.3 times and launches. Returns with the processor shut down
+    and the session still up (16b runs in it)."""
+    import json
+    import tempfile
+
+    from ray_tpu_torch import data as rd
+    from ray_tpu_torch.llm import (ByteTokenizer, LLMConfig,
+                                   ModelLoadingConfig, build_llm_processor)
+    from ray_tpu_torch.llm import batch as llm_batch
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+    driver_kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+    zero(driver_kernels)
+    tok = ByteTokenizer()
+    out = {}
+
+    def preprocess(row):
+        return {**row, "prompt": row["text"]}
+
+    def postprocess(row):
+        return {**row, "generated_bytes": len(row["generated"].encode())}
+
+    cfg = LLMConfig(model_loading_config=ModelLoadingConfig(model_id="8b"),
+                    model_family="llama", engine_kwargs=http_engine_kwargs())
+    real_worker = llm_batch._EngineWorker
+    llm_batch._EngineWorker = rt.remote(batch_probe(real_worker._cls,
+                                                    prepare))
+    try:
+        proc = build_llm_processor(
+            cfg, preprocess=preprocess, postprocess=postprocess,
+            concurrency=1, batch_size=1, sampling_params=batch_sampling())
+        t_boot = time.time()
+        (actor,) = proc._pool()
+    finally:
+        llm_batch._EngineWorker = real_worker
+    try:
+        probe = rt.get(actor.probe_state.remote(True), timeout=900)
+        ready_s = time.time() - t_boot
+        if probe["error"] is not None:
+            fail(f"16a: the engine actor has no engine: {probe['error']}")
+        if probe["device_count"] != 1 or probe["n_layers"] != 32:
+            fail(f"16a: the actor sees {probe['device_count']} devices and "
+                 f"serves {probe['n_layers']} layers")
+        fps = rt.get(actor.probe_fingerprints.remote(), timeout=120)
+        if fps != phase4["fingerprints"]:
+            fail(f"16a: the actor's weights differ from phase 4's: {fps}")
+        out["ready"] = {
+            "processor_to_ready_s": ready_s,
+            # negative: the pool had started the worker before the call
+            "actor_process_start_s": probe["process_start"] - t_boot,
+            "process_to_init_s": probe["init_enter"] - probe["process_start"],
+            "cuda_context_s": probe["cuda_ready"] - probe["init_enter"],
+            "model_build_s": probe["model_built"] - probe["cuda_ready"],
+            "actor_visible": probe["visible"]}
+
+        # 16a.1: phase 14's prompts alone, token-exact to in-process serving
+        stats0 = probe["stats"]
+        texts14 = http_prompts()
+        rows = proc(rd.from_items([{"id": i, "text": t} for i, t in
+                                   enumerate(texts14)])).take_all()
+        probe = rt.get(actor.probe_state.remote(True), timeout=120)
+        got = [r["ids"] for r in probe["records"]]
+        want = [w["ids"] for w in expected14]
+        if got != want:
+            diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            fail(f"16a.1: ids read in the actor differ from in-process "
+                 f"serving for prompts {diff} (of {len(got)} / {len(want)})")
+        texts = [r["generated"] for r in sorted(rows, key=lambda r: r["id"])]
+        if texts != [w["text"] for w in expected14]:
+            fail("16a.1: the processor's text differs from in-process "
+                 "serving's")
+        out["16a1"] = {"rows": len(rows), "token_exact": True,
+                       **batch_launch_gate("16a.1", probe, stats0)}
+
+        # 16a.2: the JSONL pipeline through the processor at batch 16
+        stats0 = probe["stats"]
+        texts = batch_texts()
+        work = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+        src, dst = os.path.join(work, "in"), os.path.join(work, "out")
+        os.makedirs(src)
+        with open(os.path.join(src, "prompts.jsonl"), "w") as f:
+            for i, t in enumerate(texts):
+                f.write(json.dumps({"id": i, "text": t}) + "\n")
+        proc.batch_size = BATCH_SIZE
+        t0 = time.perf_counter()
+        files = proc(rd.read_json(src)).write_json(dst)
+        pipeline_s = time.perf_counter() - t0
+        probe = rt.get(actor.probe_state.remote(True), timeout=120)
+        back = sorted(rd.read_json(dst).take_all(), key=lambda r: r["id"])
+        if [r["id"] for r in back] != list(range(BATCH_ROWS)):
+            fail(f"16a.2: {len(back)} rows came back, ids "
+                 f"{[r['id'] for r in back][:8]}...")
+        by_prompt = {tuple(r["prompt"]): r["ids"] for r in probe["records"]}
+        if len(probe["records"]) != BATCH_ROWS:
+            fail(f"16a.2: the actor served {len(probe['records'])} requests")
+        for r in back:
+            ids = by_prompt.get(tuple(tok.encode(r["text"])))
+            if (r["text"] != texts[r["id"]] or r["prompt"] != r["text"]
+                    or ids is None or not ids
+                    or r["generated"] != tok.decode(ids)
+                    or r["generated_bytes"] != len(
+                        r["generated"].encode())):
+                fail(f"16a.2: row {r['id']} came back altered: "
+                     f"{ {k: str(v)[:40] for k, v in r.items()} }")
+        ids = [by_prompt[tuple(tok.encode(t))] for t in texts]
+        generated = sum(len(i) for i in ids)
+        out["16a2"] = {
+            "rows": len(back), "files": len(files),
+            "pipeline_s": pipeline_s,
+            "rows_per_s": BATCH_ROWS / pipeline_s,
+            "generated_tokens": generated,
+            "generated_tokens_per_s": generated / pipeline_s,
+            "rows_equal_in_process": sum(a == b for a, b in
+                                         zip(ids, expected16)),
+            "rows_with_text": sum(bool(r["generated"]) for r in back),
+            **batch_launch_gate("16a.2", probe, stats0)}
+        out["launches"] = probe["launches"]
+        driver = counts(driver_kernels)
+        if any(driver.values()):
+            fail(f"16a: kernels launched in the driver: {driver}")
+        out["driver_launches"] = driver
+    finally:
+        proc.shutdown()
+    return out
+
+
+def data_to_card(torch, rt, card: str, prepare=None) -> dict:
+    """16b: ~0.6 GB of uint8 image rows from a numpy seed through
+    from_numpy, normalized on the card by a num_gpus=1 callable-class
+    stage (checked in its worker against numpy), then delivered to the
+    driver's card by iter_device_batches and held byte-exact to the host
+    batches."""
+    import numpy as np
+
+    from ray_tpu_torch import data as rd
+
+    n = IMG_BATCH * IMG_BATCHES
+    rng = np.random.default_rng(SEED + 16)
+    images = np.frombuffer(rng.bytes(n * int(np.prod(IMG_SHAPE))),
+                           np.uint8).reshape(n, *IMG_SHAPE)
+    parts = [rd.from_numpy(images[i:i + IMG_BATCH])
+             for i in range(0, n, IMG_BATCH)]
+    ds = parts[0].union(*parts[1:])
+
+    class Normalize:
+        """ImageNet normalization on the card; each batch also in numpy
+        f32, and the largest difference returned beside it."""
+
+        def __init__(self):
+            import os as _os
+            import time as _time
+
+            t0 = _time.perf_counter()
+            if prepare is not None:
+                prepare()
+            import torch as _torch
+
+            self.torch = _torch
+            self.dev = _torch.device("cuda")
+            self.mean = _torch.tensor(IMG_MEAN, device=self.dev)
+            self.std = _torch.tensor(IMG_STD, device=self.dev)
+            self.devices = _torch.cuda.device_count()
+            vis = _os.environ.get("CUDA_VISIBLE_DEVICES", "")
+            self.visible = int(vis) if vis.isdigit() else -1
+            self.init_s = _time.perf_counter() - t0  # torch + CUDA context
+
+        def __call__(self, batch):
+            import time as _time
+
+            import numpy as _np
+
+            x = batch["data"]
+            t0 = _time.perf_counter()
+            t = self.torch.from_numpy(x.copy()).to(self.dev)
+            y = ((t.float() / 255.0 - self.mean) / self.std).cpu().numpy()
+            t1 = _time.perf_counter()
+            want = ((x.astype(_np.float32) / _np.float32(255.0)
+                     - _np.asarray(IMG_MEAN, _np.float32))
+                    / _np.asarray(IMG_STD, _np.float32))
+            err = _np.abs(y - want).max()
+            t2 = _time.perf_counter()
+            k = len(x)
+            return {"image": y, "max_err": _np.full(k, err, _np.float32),
+                    "devices": _np.full(k, self.devices),
+                    "visible": _np.full(k, self.visible),
+                    "init_s": _np.full(k, self.init_s),
+                    "gpu_ms": _np.full(k, (t1 - t0) * 1e3),
+                    "check_ms": _np.full(k, (t2 - t1) * 1e3)}
+
+    t0 = time.perf_counter()
+    mat = ds.map_batches(Normalize, batch_size=IMG_BATCH, num_gpus=1,
+                         concurrency=1, compute="actors").materialize()
+    stage_s = time.perf_counter() - t0
+    host = list(mat.iter_batches(batch_size=IMG_BATCH, drop_last=True))
+    if len(host) != IMG_BATCHES:
+        fail(f"16b: {len(host)} host batches of {IMG_BATCH}")
+    devices = {int(d) for b in host for d in b["devices"]}
+    visible = {int(v) for b in host for v in b["visible"]}
+    err = max(float(b["max_err"].max()) for b in host)
+    if devices != {1} or -1 in visible:
+        fail(f"16b: the GPU stage's worker saw {devices} devices, "
+             f"CUDA_VISIBLE_DEVICES {visible}")
+    if not err <= NORM_TOL:
+        fail(f"16b: the card's normalization is {err} from numpy's "
+             f"(tolerance {NORM_TOL})")
+    rows = images[3 * IMG_BATCH:3 * IMG_BATCH + 4]
+    want = ((rows.astype(np.float32) / np.float32(255.0)
+             - np.asarray(IMG_MEAN, np.float32))
+            / np.asarray(IMG_STD, np.float32))
+    if np.abs(host[3]["image"][:4] - want).max() > NORM_TOL:
+        fail("16b: the stage's output rows are not their inputs'")
+
+    # the device iterator, timed twice: the first pass meets the store's
+    # pages and the pinned staging buffers cold, the second warm; each
+    # batch held byte-exact to its host batch on the card
+    cols = ("image", "max_err", "devices", "visible", "gpu_ms", "check_ms")
+    passes = []
+    for p in ("cold", "warm"):
+        torch.cuda.synchronize()
+        waits, got = [], []
+        t0 = time.perf_counter()
+        it = mat.iter_device_batches(batch_size=IMG_BATCH,
+                                     device="cuda", prefetch=2)
+        while True:
+            tw = time.perf_counter()
+            try:
+                b = next(it)
+            except StopIteration:
+                break
+            waits.append(time.perf_counter() - tw)
+            got.append(b)
+        torch.cuda.synchronize()
+        iter_s = time.perf_counter() - t0
+        if len(got) != IMG_BATCHES:
+            fail(f"16b: iter_device_batches gave {len(got)} batches")
+        for i, (g, h) in enumerate(zip(got, host)):
+            for col in cols:
+                t = g[col]
+                if t.device.type != "cuda":
+                    fail(f"16b: batch {i} column {col} is on {t.device}")
+                if not torch.equal(t, torch.from_numpy(
+                        np.ascontiguousarray(h[col])).to(t.device)):
+                    fail(f"16b: batch {i} column {col} is not byte-exact")
+        nbytes = sum(t.numel() * t.element_size() for g in got
+                     for t in g.values())
+        w = sorted(waits)
+        passes.append({"pass": p, "s": iter_s, "bytes": nbytes,
+                       "GBps": nbytes / iter_s / 1e9,
+                       "wait_ms": {"first": waits[0] * 1e3,
+                                   "median": w[len(w) // 2] * 1e3,
+                                   "max": w[-1] * 1e3}})
+        del got
+        torch.cuda.empty_cache()
+    # the plain synchronous copy of the same host batches, for scale
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for h in host:
+        for col in cols:
+            torch.from_numpy(np.ascontiguousarray(h[col])).to(
+                torch.device("cuda"))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return {"rows": n, "input_bytes": images.nbytes,
+            "stage_s": stage_s, "stage_rows_per_s": n / stage_s,
+            "stage_worker_init_s": float(host[0]["init_s"][0]),
+            "stage_gpu_s": sum(float(b["gpu_ms"][0]) for b in host) / 1e3,
+            "stage_numpy_check_s": sum(float(b["check_ms"][0])
+                                       for b in host) / 1e3,
+            "max_err_vs_numpy": err, "stage_devices": sorted(devices),
+            "stage_visible": sorted(visible), "iter": passes,
+            "plain_copy_s": plain_s,
+            "plain_copy_GBps": passes[-1]["bytes"] / plain_s / 1e9}
+
+
+def batch_phase(torch, rt, card: str, phase4: dict, expected14: list[dict],
+                expected16: list[list[int]], prepare=None) -> dict:
+    """Phase 16 in a fresh session with BATCH_ENV: 16a, then 16b; after
+    shutdown() no segment of the session is left."""
+    import glob
+
+    from ray_tpu_torch._private.ray_config import RayConfig
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in BATCH_ENV}
+    os.environ.update(BATCH_ENV)
+    RayConfig.reset()
+    out = {}
+    try:
+        info = rt.init(num_cpus=8)
+        sid = out["session"] = info["session_id"]
+        out["16a"] = batch_llm(torch, rt, card, phase4, expected14,
+                               expected16, prepare)
+        out["16b"] = data_to_card(torch, rt, card, prepare)
+    finally:
+        rt.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig.reset()
+    left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+    if left:
+        fail(f"16: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = out["16a"]["launches"]
+    a, b = out["16a"], out["16b"]
+    print(f"batch inference on {card}: processor to ready "
+          f"{a['ready']['processor_to_ready_s']:.3f} s; 16a.1 token-exact "
+          f"({a['16a1']['rows']} prompts alone); pipeline of "
+          f"{a['16a2']['rows']} rows in {a['16a2']['pipeline_s']:.3f} s, "
+          f"{a['16a2']['rows_per_s']:.3f} rows/s, "
+          f"{a['16a2']['generated_tokens_per_s']:.1f} generated tokens/s, "
+          f"{a['16a2']['rows_equal_in_process']} of {BATCH_ROWS} rows equal "
+          f"in-process; 16b GPU stage {b['stage_rows_per_s']:.1f} rows/s "
+          f"(max err {b['max_err_vs_numpy']:.3g}), iter_device_batches "
+          f"cold {b['iter'][0]['GBps']:.3f}, warm {b['iter'][1]['GBps']:.3f}"
+          f" GB/s (plain copy {b['plain_copy_GBps']:.3f}), warm wait per "
+          f"batch median {b['iter'][1]['wait_ms']['median']:.3f} ms; phase "
+          f"16 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -3642,7 +4180,7 @@ def main() -> int:
                 "pd_monolithic": {}, "pd_handoff": {},
                 "pd_coalesced_prefill": {}, "worker_kernels": {},
                 "actor_serve": {}, "serve_http": {}, "serve_pd_http": {},
-                "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
+                "batch_processor": {}, "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
 
@@ -3722,6 +4260,7 @@ def main() -> int:
         # phase 14's and 15's expected responses, on the same weights
         expected14 = http_expected(torch, cfg8b, params8b)
         expected15 = pd_expected(torch, cfg8b, params8b)
+        expected16 = batch_expected(torch, cfg8b, params8b)
         fps10 = weight_fingerprints(torch, params8b)
         del params8b
         gc.collect()  # engines that hold the 8B weights in reference cycles
@@ -3748,6 +4287,12 @@ def main() -> int:
                           "prefill_batch_vs_prefill":
                           expected15["prefill_batch_vs_prefill"]}),
               flush=True)
+        # phase 16: Llama-3-8B batch inference over Data, and Data onto
+        # the card, in a fresh session
+        batch = batch_phase(torch, ray_tpu_torch, card, serving, expected14,
+                            expected16)
+        launches["batch_processor"] = batch["launches"]
+        print(json.dumps({"card": card, "batch": batch}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

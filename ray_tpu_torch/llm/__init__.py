@@ -1,10 +1,11 @@
 """ray_tpu_torch.llm — LLM serving on the GPU (PyTorch/CUDA port of
 ray_tpu.llm): the engine, the PD plane (kv_transfer) and its deployments
-on Serve (pd), and the OpenAI server on Serve (server). The batch
-processor is not ported yet."""
+on Serve (pd), the OpenAI server on Serve (server) and the batch
+processor over Data (batch)."""
 
 from ray_tpu_torch import _device  # noqa: F401 — numerics settings first
 
+from ray_tpu_torch.llm.batch import Processor, build_llm_processor
 from ray_tpu_torch.llm.config import (LLMConfig, LoraConfig,
                                       ModelLoadingConfig, PDConfig)
 from ray_tpu_torch.llm.engine import LLMEngine, SamplingParams
@@ -25,7 +26,9 @@ __all__ = [
     "ModelLoadingConfig",
     "PDConfig",
     "PagedKVExporter",
+    "Processor",
     "SamplingParams",
+    "build_llm_processor",
     "build_openai_app",
     "build_pd_openai_app",
     "load_tokenizer",

@@ -283,11 +283,24 @@ _ALLOWED = {
     ("silent-swallow", "serve/controller.py", "ServeController.shutdown"),
     ("silent-swallow", "serve/controller.py", "_count"),
     ("silent-swallow", "serve/multiplex.py", "multiplexed.wrap.get_model"),
+    # Data's executor and the batch processor (baseline.txt's
+    # data/execution.py and llm/batch.py entries): telemetry and event
+    # guards, best-effort frees of owned refs and pool teardown
+    *(("silent-swallow", "data/execution.py", f) for f in (
+        "StreamingExecutor._free_if_owned", "StreamingExecutor.execute",
+        "StreamingExecutor.execute._handle_failure",
+        "StreamingExecutor.execute._note_queues",
+        "StreamingExecutor.execute._note_replacements",
+        "StreamingExecutor.execute._q_room",
+        "StreamingExecutor.release_owned", "_ActorPool._replace",
+        "_ActorPool.note_done", "_ActorPool.shutdown", "_emit_data_event")),
+    ("silent-swallow", "llm/batch.py", "Processor.shutdown"),
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
 # the transfer plane, PD (below Serve and its deployments) and channel
-# modules, the runtime core's host modules, Serve and the LLM server
+# modules, the runtime core's host modules, Serve, the LLM server, Data
+# and the batch processor
 _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "events", "fixed_point", "gcs", "gcs_storage", "ids",
             "local_mode", "log_monitor", "memory_monitor", "node",
@@ -299,6 +312,8 @@ _SERVE = ("__init__", "api", "batching", "config", "controller",
           "deployment", "gcs_state", "handle", "http_server", "multiplex",
           "proxy", "proxy_plane", "replica", "request_context",
           "request_router", "rpc_ingress", "schema")
+_DATA = ("__init__", "aggregate", "archive", "avro", "block", "dataset",
+         "datasource", "execution", "expressions", "lakehouse", "logical")
 _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
             "experimental/channel/mutable_shm.py",
             "experimental/channel/channel.py", "util/metrics.py",
@@ -306,7 +321,9 @@ _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
             "util/actor_pool.py", "util/scheduling_strategies.py",
             "remote_function.py", "actor.py", "runtime_env.py",
             "cross_lang.py", "exceptions.py", "llm/server.py",
-            "llm/tokenizer.py", "llm/checkpoint_io.py") + tuple(
+            "llm/tokenizer.py", "llm/checkpoint_io.py",
+            "llm/batch.py") + tuple(
+                f"data/{m}.py" for m in _DATA) + tuple(
                 f"_private/{m}.py" for m in _RUNTIME) + tuple(
                 f"serve/{m}.py" for m in _SERVE)
 

@@ -268,9 +268,18 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.serve.rpc_ingress\n"
         "import ray_tpu_torch.serve.schema\n"
         "import ray_tpu_torch.llm.server, ray_tpu_torch.llm.tokenizer\n"
+        "import ray_tpu_torch.llm.batch, ray_tpu_torch.data\n"
+        "import ray_tpu_torch.data.aggregate, ray_tpu_torch.data.archive\n"
+        "import ray_tpu_torch.data.avro, ray_tpu_torch.data.block\n"
+        "import ray_tpu_torch.data.dataset, ray_tpu_torch.data.datasource\n"
+        "import ray_tpu_torch.data.execution\n"
+        "import ray_tpu_torch.data.expressions\n"
+        "import ray_tpu_torch.data.lakehouse, ray_tpu_torch.data.logical\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"
+        "lazy = [m for m in ('pyarrow', 'pandas') if m in sys.modules]\n"
+        "assert not lazy, lazy\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO

@@ -21,8 +21,6 @@ ALLOWED = {
                           "unless the caller asks for the CPU)",
     },
     "llm": {
-        "Processor": "item 9d",
-        "build_llm_processor": "item 9d",
         "TPUEngine": "rename: LLMEngine",
         "LLMEngine": "rename of TPUEngine",
         "LoraConfig": "port: exported (the reference keeps it in "
@@ -44,6 +42,7 @@ ALLOWED = {
                      "optimizer_state_bytes", "param_leaves")},
     },
     "serve": {},
+    "data": {},
     "util": {},
     "parallel": {
         "shard_map": "port: explicit per-rank SPMD takes its place",

@@ -157,3 +157,36 @@ def err_name(call) -> str | None:
     except Exception as e:  # noqa: BLE001 — the class name is the result
         return type(e).__name__
     return None
+
+
+def pair(scenario, want=None):
+    """scenario(ray_tpu) and scenario(ray_tpu_torch), one after the other on
+    this thread, for code that needs no session; both must agree."""
+    import ray_tpu
+    import ray_tpu_torch
+
+    a, b = scenario(ray_tpu), scenario(ray_tpu_torch)
+    assert a == b, (a, b)
+    if want is not None:
+        assert a == want, a
+    return a
+
+
+def env_name(rt, flag: str) -> str:
+    """The env var of config flag `flag` (e.g. "DATA_MAX_BLOCK_RETRIES") in
+    `rt`'s namespace: ``RAY_TPU_*`` or the port's ``RAY_TPU_TORCH_*``."""
+    return ("RAY_TPU_TORCH_" if is_port(rt) else "RAY_TPU_") + flag
+
+
+def plain(x):
+    """numpy scalars and arrays (nested in dicts, lists and tuples) as
+    Python values, so results compare with ==."""
+    import numpy as np
+
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(plain(v) for v in x)
+    if isinstance(x, (np.ndarray, np.generic)):
+        return x.tolist()
+    return x
