@@ -286,6 +286,41 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       plain synchronous copy of the same batches.
    After ``shutdown()`` no segment of the session is left.
 
+17. Train and Tune (a new runtime session, after phase 16, before phase
+   11): ``RAY_TPU_TORCH_WORKER_PLATFORM=cuda`` before ``init`` (17c's and
+   17d's workers hold half a GPU, which binds no card) and an 8 GiB store;
+   both restored after. Launch counts are read in the workers and come
+   back through ``session.report``; the driver launches no kernel while a
+   ``fit()`` runs. Each sub-phase prints its time.
+   a. Llama-3.2-1B (phase 6's config and optimizer) through
+      ``TorchTrainer`` with one GPU worker, 4 steps at batch 4 x 2048 on
+      token rows from a numpy seed, through ``get_dataset_shard("train")
+      .iter_batches(batch_size=4)``: the worker's losses equal an
+      in-process run of the same steps on the same rows bit for bit (the
+      in-process run goes first and is freed before ``fit()``), its
+      launches are phase 6's formula, ``Result.metrics`` holds the last
+      loss; ``fit()``'s time and the worker's start-up split.
+   b. GPT-2 124M, 8 steps at batch 8 x 1024 (step k's rows from numpy seed
+      k), a checkpoint of params and AdamW state every 2 steps,
+      ``FailureConfig(max_failures=1)``, ``CheckpointConfig(num_to_keep=
+      2)``: the first attempt SIGKILLs its own worker in step 5, the second
+      restores step 4's checkpoint; steps 5-8 equal an uninterrupted
+      in-process run bit for bit, the attempts are errored then finished,
+      the result's checkpoint is step 8's, two committed checkpoints are
+      left, no storage retry.
+   c. Two workers with half the card each, ``ZeroShardedOptimizer`` over
+      the host ring, 3 steps of GPT-2 on the halves of 17b's batches: f32
+      AdamW uncompressed, then int8 AdamW with int8 gradients, held as
+      tests/test_zero.py holds them to an unsharded in-process baseline
+      stepping with the mean gradient (ranks equal, params within rtol
+      1e-4 / atol 1e-6 and loss within rtol 1e-4 for f32, loss within rtol
+      0.1 for int8, the opt-state gauge under 0.62 x the baseline's).
+   d. ``Tuner`` over a ``TorchTrainer`` (one worker with half the card), a
+      grid of two rates run at once, 3 steps: two results without error,
+      each first loss equal to 17b's first step bit for bit, the best
+      result the lower last loss, each worker's launches phase 6's formula.
+   After ``shutdown()`` no segment of the session is left.
+
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3769,6 +3804,738 @@ def batch_phase(torch, rt, card: str, phase4: dict, expected14: list[dict],
     return out
 
 
+# ----------------------------------------------------------------- phase 17
+
+TRAIN_ENV = {
+    # 17c's and 17d's workers hold a 0.5 GPU share, which binds no card:
+    # they reach it as the PD pools do
+    "RAY_TPU_TORCH_WORKER_PLATFORM": "cuda",
+    # 17c's ring puts GPT-2's 0.5 GB f32 vector through the store each step
+    "RAY_TPU_TORCH_STORE_CAPACITY": str(8 << 30)}
+TRAIN_LR, TRAIN_WD = 1e-4, 0.01          # phase 6's adamw
+T17_BATCH, T17_STEPS = 4, 4              # 17a: Llama-3.2-1B, 4 x 2048
+GPT2_BATCH, GPT2_SEQ, GPT2_STEPS = 8, 1024, 8   # 17b
+KILL_STEP, CKPT_EVERY, CKPT_KEEP = 5, 2, 2
+ZERO_STEPS = 3                           # 17c
+# (kind, gradient compression, rate): f32 at tests/test_zero.py's rate;
+# int8 at phase 6's. On random tokens GPT-2 diverges at 1e-2 (f32 loss up
+# ~1.8 in 3 steps), and the two int8 runs then diverge apart (sharded 38.5
+# against unsharded 14.8, PERF.md §6): loss parity there compares noise
+ZERO_RUNS = (("fp32", None, 1e-2), ("int8", "int8_block", TRAIN_LR))
+TUNE_STEPS, TUNE_LRS = 3, (1e-4, 1e-3)   # 17d
+
+
+def gpt2_train_config():
+    from ray_tpu_torch.models import gpt2
+
+    return gpt2.gpt2_config("124m")
+
+
+def gpt2_batch(k: int, vocab: int):
+    """17b's batch of step k (1-based): [8, 1025] token ids from numpy seed
+    SEED + k, so a resumed attempt sees the batches an uninterrupted run
+    does."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + k).integers(
+        0, vocab, size=(GPT2_BATCH, GPT2_SEQ + 1))
+
+
+def loop_kernels():
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+    return [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """Phase 6's formula: the forward and its recompute under remat, one
+    dK/dV and one dQ per layer and step, no decode."""
+    L = cfg.n_layers
+    return {"flash_attention_fwd_bf16": 2 * L * steps,
+            "flash_attention_bwd_dkv_bf16": L * steps,
+            "flash_attention_bwd_dq_bf16": L * steps,
+            "ragged_paged_attention_bf16": 0}
+
+
+def rows_sha(rows) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(rows).tobytes()).hexdigest()
+
+
+def train_model(torch, cfg, lr: float = TRAIN_LR, marks=None):
+    """(params, optimizer, step) on the card from seed SEED, as phase 6;
+    `marks` gets the wall time after the imports and after the params."""
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.models import transformer
+
+    dev = torch.device("cuda")
+    if marks is not None:
+        marks["imported"] = time.time()
+    params = transformer.init(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    if marks is not None:
+        torch.cuda.synchronize()
+        marks["params"] = time.time()
+    opt = tr.adamw(params, lr, weight_decay=TRAIN_WD)
+    step = tr.make_train_step(
+        lambda p, b: transformer.loss_fn(p, b, cfg), opt)
+    return params, opt, step
+
+
+def run_steps(torch, step, params, batches, on_step=None) -> list[float]:
+    """Each batch (numpy rows) to the card and one step; the loss read back
+    (a sync). ``on_step(i, rows, loss, ms)`` after each."""
+    losses = []
+    for i, rows in enumerate(batches):
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(rows, device=torch.device("cuda"))
+        params, _, loss = step(params, None, tokens)
+        losses.append(loss.item())
+        if on_step is not None:
+            on_step(i, rows, losses[-1], (time.perf_counter() - t0) * 1e3)
+    return losses
+
+
+def llama_loop(config):
+    """17a's train loop: Llama-3.2-1B (phase 6's config) on the rows of the
+    "train" dataset shard, 4 at a time; every step reports its loss, time
+    and the batch's hash, the last also the worker's start-up times and its
+    launch counts."""
+    t_enter = time.time()
+    started = process_start_time()
+    if config.get("prepare") is not None:
+        config["prepare"]()
+    import numpy as np
+    import torch
+
+    torch.empty(1, device=torch.device("cuda"))
+    torch.cuda.synchronize()
+    t_cuda = time.time()
+    from ray_tpu_torch import train as tr
+
+    cfg = train_config()
+    marks = {}
+    params, _, step = train_model(torch, cfg, marks=marks)
+    torch.cuda.synchronize()
+    t_built = time.time()
+    kernels = loop_kernels()
+    zero(kernels)
+    losses = []
+
+    def on_step(i, rows, loss, ms):
+        losses.append(loss)
+        m = {"loss": loss, "step_ms": ms, "batch_sha": rows_sha(rows)}
+        if i + 1 == config["steps"]:
+            m.update(launches=counts(kernels), losses=list(losses),
+                     process_start=started, loop_enter=t_enter,
+                     cuda_ready=t_cuda, model_built=t_built,
+                     imported=marks["imported"], params_drawn=marks["params"],
+                     device=torch.cuda.get_device_name(0))
+        tr.report(m)
+
+    shard = tr.get_dataset_shard("train")
+    run_steps(torch, step, params,
+              (np.ascontiguousarray(b["data"])
+               for b in shard.iter_batches(batch_size=config["batch"])),
+              on_step)
+
+
+def gpt2_resume_loop(config):
+    """17b's train loop: GPT-2 124M, step k on ``gpt2_batch(k)``, a
+    checkpoint (params and AdamW state, ``torch.save``) every CKPT_EVERY
+    steps. On an attempt that starts from no checkpoint the process
+    SIGKILLs itself in step KILL_STEP, after its backward and before its
+    report; an attempt that starts from one restores it and carries on."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    if config.get("prepare") is not None:
+        config["prepare"]()
+    import torch
+
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.train.optim import param_leaves
+
+    cfg = gpt2_train_config()
+    t_enter = time.time()
+    params, opt, step = train_model(torch, cfg)
+    torch.cuda.synchronize()
+    t_built = time.time()
+    kernels = loop_kernels()
+    zero(kernels)
+    ckpt = tr.get_checkpoint()
+    start, restore = 0, None
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        with ckpt.as_directory() as d:
+            path = os.path.join(d, "rank_0", "state.pt")
+            nbytes = os.path.getsize(path)
+            state = torch.load(path, map_location=torch.device("cuda"))
+        with torch.no_grad():
+            for p, q in zip(param_leaves(params),
+                            param_leaves(state["params"])):
+                p.copy_(q)
+        opt.load_state_dict(state["opt"])
+        start = state["step"]
+        del state
+        torch.cuda.synchronize()
+        restore = {"s": time.perf_counter() - t0, "bytes": nbytes,
+                   "step": start, "t_first_step": None,
+                   "process_start": process_start_time(),
+                   "loop_enter": t_enter, "model_built": t_built}
+    losses, saves = {}, []
+    for k in range(start + 1, config["steps"] + 1):
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(gpt2_batch(k, cfg.vocab_size),
+                                 device=torch.device("cuda"))
+        params, _, loss = step(params, None, tokens)
+        losses[k] = loss.item()
+        if restore is not None and restore["t_first_step"] is None:
+            restore["t_first_step"] = time.time()
+        if k == KILL_STEP and ckpt is None:
+            with open(config["kill_mark"], "w") as f:
+                f.write(repr(time.time()))
+            os.kill(os.getpid(), signal.SIGKILL)
+        m = {"step": k, "loss": losses[k],
+             "step_ms": (time.perf_counter() - t0) * 1e3}
+        if k == config["steps"]:
+            m.update(losses=dict(losses), restore=restore, saves=saves,
+                     launches=counts(kernels))
+        if k % CKPT_EVERY:
+            tr.report(m)
+            continue
+        d = tempfile.mkdtemp(dir=config["scratch"])
+        try:
+            t1 = time.perf_counter()
+            torch.save({"params": params, "opt": opt.state_dict(),
+                        "step": k}, os.path.join(d, "state.pt"))
+            nbytes = os.path.getsize(os.path.join(d, "state.pt"))
+            t2 = time.perf_counter()
+            saves.append({"step": k, "bytes": nbytes, "save_s": t2 - t1})
+            tr.report(m, checkpoint=tr.Checkpoint.from_directory(d))
+            saves[-1]["persist_s"] = time.perf_counter() - t2
+        finally:
+            shutil.rmtree(d, ignore_errors=True)
+
+
+def zero_loop(config):
+    """17c's train loop, one of two ranks sharing the card: for each of
+    ZERO_RUNS, GPT-2 124M from seed SEED on its half of 17b's batch k,
+    ``ZeroShardedOptimizer`` over the host ring. After each run a rank
+    writes its params' hash, losses, opt-state gauge, the ring's bytes and
+    its launches to ``<out>/<kind>_rank<r>.json``, rank 0 its final params
+    to ``<out>/<kind>_params.pt``."""
+    import functools
+    import hashlib
+    import os
+
+    if config.get("prepare") is not None:
+        config["prepare"]()
+    import torch
+
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train.optim import param_leaves
+    from ray_tpu_torch.util import collective as col
+    from ray_tpu_torch.util import metrics as met
+
+    rank = tr.get_context().get_world_rank()
+    cfg = gpt2_train_config()
+    dev = torch.device("cuda")
+    kernels = loop_kernels()
+    half = GPT2_BATCH // 2
+    for kind, compression, lr in ZERO_RUNS:
+        group = f"{config['group']}_{kind}"
+        col.init_collective_group(2, rank, group_name=group)
+        params = transformer.init(
+            torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+        make = tr.adamw if kind == "fp32" else tr.adamw_int8
+        zopt = tr.ZeroShardedOptimizer(
+            functools.partial(make, learning_rate=lr, weight_decay=TRAIN_WD),
+            group_name=group, grad_compression=compression, name=kind)
+        state = zopt.init(params)
+        zero(kernels)
+        losses, ring_ms = [], []
+        for k in range(1, ZERO_STEPS + 1):
+            rows = gpt2_batch(k, cfg.vocab_size)[rank * half:
+                                                 (rank + 1) * half]
+            leaves = [t.requires_grad_(True) for t in param_leaves(params)]
+            loss = transformer.loss_fn(
+                params, torch.as_tensor(rows, device=dev), cfg)
+            grads = dict(enumerate(torch.autograd.grad(loss, leaves)))
+            losses.append(loss.item())
+            t0 = time.perf_counter()
+            params, state = zopt.step(params, grads, state)
+            torch.cuda.synchronize()
+            ring_ms.append((time.perf_counter() - t0) * 1e3)
+            tr.report({"kind": kind, "loss": losses[-1],
+                       "ring_ms": ring_ms[-1]})
+        launches = counts(kernels)
+        flat = torch.cat([t.detach().reshape(-1).float().cpu()
+                          for t in param_leaves(params)])
+        snap = met.snapshot()
+
+        def series(name):
+            return [s for m in snap if m["name"] == name
+                    for s in m["series"]]
+
+        out = {"rank": rank, "losses": losses, "ring_ms": ring_ms,
+               "params_sha": hashlib.sha256(flat.numpy().tobytes())
+               .hexdigest(),
+               "state_bytes": zopt.state_bytes(state),
+               "gauge": series("ray_tpu_train_opt_state_bytes"),
+               "coll_bytes": series("ray_tpu_collective_bytes_total"),
+               "launches": launches}
+        with open(os.path.join(config["out"], f"{kind}_rank{rank}.json"),
+                  "w") as f:
+            json.dump(out, f)
+        if rank == 0:
+            torch.save(flat, os.path.join(config["out"],
+                                          f"{kind}_params.pt"))
+        col.destroy_collective_group(group)
+        del params, state, zopt, grads, leaves
+
+
+def tune_loop(config):
+    """17d's train loop (one trial's worker): GPT-2 124M at the trial's
+    rate on 17b's first TUNE_STEPS batches; the last report carries every
+    loss and the launch counts."""
+    if config.get("prepare") is not None:
+        config["prepare"]()
+    import torch
+
+    from ray_tpu_torch import train as tr
+
+    cfg = gpt2_train_config()
+    params, _, step = train_model(torch, cfg, lr=config["lr"])
+    kernels = loop_kernels()
+    zero(kernels)
+    losses = []
+
+    def on_step(i, rows, loss, ms):
+        losses.append(loss)
+        m = {"loss": loss, "step_ms": ms}
+        if i + 1 == TUNE_STEPS:
+            m.update(losses=list(losses), launches=counts(kernels),
+                     lr=config["lr"])
+        tr.report(m)
+
+    run_steps(torch, step, params,
+              (gpt2_batch(k, cfg.vocab_size)
+               for k in range(1, TUNE_STEPS + 1)), on_step)
+
+
+def zero_baseline(torch, kind: str, lr: float) -> dict:
+    """17c's unsharded baseline in process: one AdamW (or int8 AdamW) over
+    every param, stepping with the mean of the two halves' gradients."""
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.train.optim import param_leaves
+
+    cfg = gpt2_train_config()
+    dev = torch.device("cuda")
+    params = transformer.init(
+        torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+    make = tr.adamw if kind == "fp32" else tr.adamw_int8
+    opt = make(params, lr, weight_decay=TRAIN_WD)
+    leaves = param_leaves(params)
+    half = GPT2_BATCH // 2
+    losses = []
+    for k in range(1, ZERO_STEPS + 1):
+        rows = gpt2_batch(k, cfg.vocab_size)
+        pairs = []
+        for r in range(2):
+            loss = transformer.loss_fn(
+                params, torch.as_tensor(rows[r * half:(r + 1) * half],
+                                        device=dev), cfg)
+            pairs.append((loss.item(), torch.autograd.grad(loss, leaves)))
+        losses.append(pairs[0][0])
+        for p, g0, g1 in zip(leaves, pairs[0][1], pairs[1][1]):
+            p.grad = (g0 + g1) / 2
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+    flat = torch.cat([t.detach().reshape(-1).float().cpu() for t in leaves])
+    return {"losses": losses, "state_bytes":
+            tr.optimizer_state_bytes(opt), "flat": flat}
+
+
+def committed_only(storage, exp_dir: str) -> list[str]:
+    """The checkpoint dirs under `exp_dir`; fails unless every one of them
+    is committed (manifest and commit marker on every rank)."""
+    names = sorted(n for n in storage.list_subdirs(storage.LocalBackend(),
+                                                   exp_dir)
+                   if n.startswith("checkpoint_"))
+    good = [os.path.basename(p) for p, _ in storage.list_committed_checkpoints(
+        storage.LocalBackend(), exp_dir, 1)]
+    if names != sorted(good):
+        fail(f"17: {exp_dir} holds checkpoint dirs that are not committed: "
+             f"{sorted(set(names) - set(good))}")
+    return names
+
+
+def train_fit_17a(torch, rt, kernels, card: str, root: str,
+                  prepare=None) -> dict:
+    """17a: the in-process run first (then freed), then the same loop in a
+    TorchTrainer GPU worker on the same rows through a dataset shard."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+    from ray_tpu_torch import train as tr
+
+    cfg = train_config()
+    rows = np.random.default_rng(SEED + 17).integers(
+        0, cfg.vocab_size, size=(T17_BATCH * T17_STEPS, 2049))
+    batches = [rows[i * T17_BATCH:(i + 1) * T17_BATCH]
+               for i in range(T17_STEPS)]
+    params, opt, step = train_model(torch, cfg)
+    ref_ms = []
+    ref = run_steps(torch, step, params, batches,
+                    lambda i, r, loss, ms: ref_ms.append(ms))
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero(kernels)
+    t0 = time.time()
+    result = tr.TorchTrainer(
+        llama_loop,
+        train_loop_config={"steps": T17_STEPS, "batch": T17_BATCH,
+                           "prepare": prepare},
+        scaling_config=tr.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=tr.RunConfig(storage_path=os.path.join(root, "17a")),
+        datasets={"train": data.from_numpy(rows)}).fit()
+    fit_s = time.time() - t0
+    driver = counts(kernels)
+    m = result.metrics
+    out = {"fit_s": fit_s, "losses": m.get("losses"), "ref_losses": ref,
+           "ref_step_ms": ref_ms, "launches": m.get(
+               "launches"), "driver_launches": driver,
+           "error": result.error}
+    if result.error is not None:
+        fail(f"17a: Result.error {result.error}")
+    if any(driver.values()):
+        fail(f"17a: the driver launched kernels during fit(): {driver}")
+    if m.get("losses") != ref:
+        fail(f"17a: the worker's losses {m.get('losses')} are not the "
+             f"in-process run's {ref} bit for bit")
+    if m.get("loss") != ref[-1]:
+        fail(f"17a: Result.metrics loss {m.get('loss')} is not the last "
+             f"step's {ref[-1]}")
+    want = train_launches(cfg, T17_STEPS)
+    if m.get("launches") != want:
+        fail(f"17a: the worker launched {m.get('launches')}, expected "
+             f"{want}")
+    out["start"] = {"fit_to_process_s": m["process_start"] - t0,
+                    "process_to_loop_s": m["loop_enter"] - m["process_start"],
+                    "torch_cuda_s": m["cuda_ready"] - m["loop_enter"],
+                    "model_build_s": m["model_built"] - m["cuda_ready"],
+                    "model_imports_s": m["imported"] - m["cuda_ready"],
+                    "params_s": m["params_drawn"] - m["imported"],
+                    "optimizer_s": m["model_built"] - m["params_drawn"]}
+    out["last_step_ms"] = m["step_ms"]
+    print(f"17a llama-3.2-1b TorchTrainer on {card}: fit() {fit_s:.3f} s; "
+          f"worker process started {out['start']['fit_to_process_s']:.3f} s "
+          f"after fit(), loop entered {out['start']['process_to_loop_s']:.3f}"
+          f" s later, torch + CUDA {out['start']['torch_cuda_s']:.3f} s, "
+          f"model build {out['start']['model_build_s']:.3f} s (imports "
+          f"{out['start']['model_imports_s']:.3f}, params "
+          f"{out['start']['params_s']:.3f}, optimizer "
+          f"{out['start']['optimizer_s']:.3f}); last step "
+          f"{m['step_ms']:.3f} ms in the worker, {ref_ms[-1]:.3f} ms in "
+          f"process; losses bit-equal {ref}", flush=True)
+    return out
+
+
+def train_resume_17b(torch, rt, kernels, card: str, root: str,
+                     prepare=None) -> dict:
+    """17b: an uninterrupted in-process run of the 8 steps, then the same
+    loop under FailureConfig(max_failures=1), killed in step 5 and resumed
+    from step 4's checkpoint."""
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch.train import storage
+
+    cfg = gpt2_train_config()
+    params, opt, step = train_model(torch, cfg)
+    ref = run_steps(torch, step, params,
+                    (gpt2_batch(k, cfg.vocab_size)
+                     for k in range(1, GPT2_STEPS + 1)))
+    del params, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    scratch = os.path.join(root, "17b_scratch")
+    os.makedirs(scratch)
+    kill_mark = os.path.join(root, "17b_kill")
+    exp = os.path.join(root, "17b")
+    zero(kernels)
+    t0 = time.time()
+    result = tr.TorchTrainer(
+        gpt2_resume_loop,
+        train_loop_config={"steps": GPT2_STEPS, "scratch": scratch,
+                           "kill_mark": kill_mark, "prepare": prepare},
+        scaling_config=tr.ScalingConfig(num_workers=1, use_gpu=True),
+        run_config=tr.RunConfig(
+            name="run", storage_path=exp,
+            failure_config=tr.FailureConfig(max_failures=1),
+            checkpoint_config=tr.CheckpointConfig(num_to_keep=CKPT_KEEP))
+    ).fit()
+    fit_s = time.time() - t0
+    driver = counts(kernels)
+    if any(driver.values()):
+        fail(f"17b: the driver launched kernels during fit(): {driver}")
+    m = result.metrics
+    outcomes = [a["outcome"] for a in result.attempts]
+    if outcomes != ["errored", "finished"]:
+        fail(f"17b: attempts {result.attempts}")
+    resumed = {int(k): v for k, v in (m.get("losses") or {}).items()}
+    want = {k: ref[k - 1] for k in range(KILL_STEP, GPT2_STEPS + 1)}
+    if resumed != want:
+        fail(f"17b: the resumed losses {resumed} are not the uninterrupted "
+             f"run's {want} bit for bit")
+    restore = m.get("restore") or {}
+    if restore.get("step") != KILL_STEP - 1:
+        fail(f"17b: restored from step {restore.get('step')}, expected "
+             f"{KILL_STEP - 1}")
+    names = committed_only(storage, os.path.join(exp, "run"))
+    last = f"checkpoint_{GPT2_STEPS - 1:06d}"
+    if len(names) != CKPT_KEEP or result.checkpoint is None or \
+            os.path.basename(result.checkpoint.path) != last:
+        fail(f"17b: checkpoints on disk {names}, Result.checkpoint "
+             f"{getattr(result.checkpoint, 'path', None)}; expected "
+             f"{CKPT_KEEP} with the last {last}")
+    if result.storage_retries != 0:
+        fail(f"17b: storage_retries {result.storage_retries}")
+    want_launches = train_launches(cfg, GPT2_STEPS - KILL_STEP + 1)
+    if m.get("launches") != want_launches:
+        fail(f"17b: the resumed worker launched {m.get('launches')}, "
+             f"expected {want_launches}")
+    with open(kill_mark) as f:
+        t_kill = float(f.read())
+    resume = {"to_process_s": restore["process_start"] - t_kill,
+              "process_to_loop_s": restore["loop_enter"]
+              - restore["process_start"],
+              "model_build_s": restore["model_built"] - restore["loop_enter"],
+              "restore_s": restore["s"]}
+    saves = m.get("saves") or []
+    out = {"fit_s": fit_s, "attempts": result.attempts, "losses": resumed,
+           "ref_losses": ref, "checkpoints": names,
+           "kill_to_first_step_s": restore["t_first_step"] - t_kill,
+           "restore_s": restore["s"], "restore_GBps":
+           restore["bytes"] / restore["s"] / 1e9, "saves": saves,
+           "launches": m["launches"], "driver_launches": driver,
+           "resume_split": resume}
+    gb = saves[-1]["bytes"] / 1e9 if saves else 0.0
+    print(f"17b gpt2-124m kill and resume on {card}: fit() {fit_s:.3f} s; "
+          f"kill to the resumed first step {out['kill_to_first_step_s']:.3f}"
+          f" s (a new worker process {resume['to_process_s']:.3f} s after "
+          f"the kill, its loop {resume['process_to_loop_s']:.3f} s later, "
+          f"model build {resume['model_build_s']:.3f} s); checkpoint "
+          f"{gb:.3f} GB, torch.save "
+          f"{saves[-1]['save_s']:.3f} s, persist {saves[-1]['persist_s']:.3f}"
+          f" s ({gb / saves[-1]['persist_s']:.3f} GB/s), restore "
+          f"{restore['s']:.3f} s ({out['restore_GBps']:.3f} GB/s); steps "
+          f"{KILL_STEP}-{GPT2_STEPS} bit-equal to the uninterrupted run",
+          flush=True)
+    return out
+
+
+def train_zero_17c(torch, rt, kernels, card: str, root: str,
+                   prepare=None) -> dict:
+    """17c: 2 ranks sharing one H100, ZeRO-1 over the host ring in one
+    fit(): f32 AdamW uncompressed, then int8 AdamW with int8 gradients,
+    against unsharded in-process baselines (tests/test_zero.py's gates)."""
+    from ray_tpu_torch import train as tr
+
+    bases = {}
+    for kind, _, lr in ZERO_RUNS:
+        bases[kind] = zero_baseline(torch, kind, lr)
+        gc.collect()
+        torch.cuda.empty_cache()
+    d = os.path.join(root, "17c")
+    os.makedirs(d)
+    zero(kernels)
+    t0 = time.time()
+    result = tr.TorchTrainer(
+        zero_loop,
+        train_loop_config={"out": d, "group": "z17", "prepare": prepare},
+        scaling_config=tr.ScalingConfig(
+            num_workers=2, resources_per_worker={"GPU": 0.5}),
+        run_config=tr.RunConfig(storage_path=d)).fit()
+    fit_s = time.time() - t0
+    driver = counts(kernels)
+    if any(driver.values()):
+        fail(f"17c: the driver launched kernels during fit(): {driver}")
+    out = {"fit_s": fit_s}
+    for kind, _, lr in ZERO_RUNS:
+        base = bases.pop(kind)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"{kind}_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        flat = torch.load(os.path.join(d, f"{kind}_params.pt"))
+        r0, r1 = ranks
+        loss, base_loss = r0["losses"][-1], base["losses"][-1]
+        if r0["params_sha"] != r1["params_sha"]:
+            fail(f"17c {kind}: the two ranks' params differ")
+        if kind == "fp32":
+            if not torch.allclose(flat, base["flat"], rtol=1e-4, atol=1e-6):
+                err = (flat - base["flat"]).abs().max().item()
+                fail(f"17c fp32: params {err:.3g} from the baseline's, "
+                     f"beyond rtol 1e-4 / atol 1e-6")
+            tol = 1e-4
+        else:
+            tol = 0.1  # tests/test_zero.py: loss parity under int8 moments
+        if abs(loss - base_loss) > tol * abs(base_loss):
+            fail(f"17c {kind}: loss {loss} vs the baseline's {base_loss}, "
+                 f"beyond rtol {tol}")
+        for r in ranks:
+            gauge = [v for _tags, v in r["gauge"]]
+            if not gauge or gauge[0] != r["state_bytes"] or \
+                    gauge[0] >= 0.62 * base["state_bytes"]:
+                fail(f"17c {kind}: rank {r['rank']}'s opt-state gauge "
+                     f"{gauge} (state {r['state_bytes']}) not under 0.62 x "
+                     f"the baseline's {base['state_bytes']}")
+        want = train_launches(gpt2_train_config(), ZERO_STEPS)
+        for r in ranks:
+            if r["launches"] != want:
+                fail(f"17c {kind}: rank {r['rank']} launched "
+                     f"{r['launches']}, expected {want}")
+        moved = sum(v for tags, v in r0["coll_bytes"]
+                    if dict(map(tuple, tags)).get("compression",
+                                                  "none") ==
+                    (("int8_block" if kind == "int8" else "none")))
+        out[kind] = {"lr": lr, "losses": r0["losses"],
+                     "base_losses": base["losses"],
+                     "state_bytes": r0["state_bytes"],
+                     "base_state_bytes": base["state_bytes"],
+                     "ring_ms": r0["ring_ms"], "rank1_ring_ms": r1["ring_ms"],
+                     "coll_bytes_rank0": r0["coll_bytes"],
+                     "max_abs_vs_base": (flat - base["flat"]).abs().max()
+                     .item(), "launches": r0["launches"]}
+        print(f"17c zero-1 {kind} at lr {lr} (2 ranks sharing one H100, "
+              f"{card}): ring step ms "
+              f"{[round(x, 3) for x in r0['ring_ms']]}; rank 0 put "
+              f"{moved / 1e9:.3f} GB on the wire as "
+              f"{'int8' if kind == 'int8' else 'f32'} in {ZERO_STEPS} steps; "
+              f"opt state {r0['state_bytes'] / 1e9:.3f} GB vs "
+              f"{base['state_bytes'] / 1e9:.3f} unsharded; losses "
+              f"{r0['losses']} vs {base['losses']}", flush=True)
+        del base, flat
+        gc.collect()
+    print(f"17c fit() {fit_s:.3f} s for both runs", flush=True)
+    return out
+
+
+def train_tune_17d(torch, rt, kernels, card: str, root: str, first_loss,
+                   prepare=None) -> dict:
+    """17d: Tune over the trainer, a grid of two rates, each trial one
+    nested TorchTrainer worker with half the card."""
+    from ray_tpu_torch import train as tr
+    from ray_tpu_torch import tune
+
+    zero(kernels)
+    t0 = time.time()
+    grid = tune.Tuner(
+        tr.TorchTrainer(
+            tune_loop, train_loop_config={"prepare": prepare},
+            scaling_config=tr.ScalingConfig(
+                num_workers=1, resources_per_worker={"GPU": 0.5})),
+        # a flat space: the searchers resolve top-level keys, and the nested
+        # trainer takes a flat trial config as its train_loop_config
+        param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+        tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                    max_concurrent_trials=2),
+        run_config=tr.RunConfig(name="tune17",
+                                storage_path=os.path.join(root, "17d"))
+    ).fit()
+    fit_s = time.time() - t0
+    driver = counts(kernels)
+    if any(driver.values()):
+        fail(f"17d: the driver launched kernels during fit(): {driver}")
+    results = [grid[i] for i in range(len(grid))]
+    if len(results) != 2 or any(r.error for r in results):
+        fail(f"17d: results {[(r.config, r.error) for r in results]}")
+    want = train_launches(gpt2_train_config(), TUNE_STEPS)
+    for r in results:
+        m = r.metrics
+        if m["losses"][0] != first_loss:
+            fail(f"17d: trial {r.config} first loss {m['losses'][0]} is "
+                 f"not 17b's first-step loss {first_loss}")
+        if m["launches"] != want:
+            fail(f"17d: trial {r.config} launched {m['launches']}, "
+                 f"expected {want}")
+    best = grid.get_best_result()
+    lowest = min(results, key=lambda r: r.metrics["loss"])
+    if best.metrics["loss"] != lowest.metrics["loss"]:
+        fail(f"17d: best result {best.config} is not the lowest last loss")
+    out = {"fit_s": fit_s, "trials": [
+        {"lr": r.metrics["lr"], "losses": r.metrics["losses"],
+         "launches": r.metrics["launches"]} for r in results],
+        "best_lr": best.metrics["lr"]}
+    print(f"17d tune over TorchTrainer on {card}: 2 trials sharing the card "
+          f"in {fit_s:.3f} s; last losses "
+          f"{[(t['lr'], t['losses'][-1]) for t in out['trials']]}; best lr "
+          f"{out['best_lr']}", flush=True)
+    return out
+
+
+def train_phase(torch, rt, kernels, card: str, prepare=None) -> dict:
+    """Phase 17 in a fresh session with TRAIN_ENV: 17a-d; after shutdown()
+    no segment of the session is left, and the storage holds only
+    committed checkpoints."""
+    import glob
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch._private.ray_config import RayConfig
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in TRAIN_ENV}
+    os.environ.update(TRAIN_ENV)
+    RayConfig.reset()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    out = {}
+    try:
+        # pre-started CPU workers take the controllers, sync actors and
+        # trial runners, which import no torch
+        info = rt.init(num_cpus=8, num_workers=4, max_workers=16)
+        sid = out["session"] = info["session_id"]
+        for name, fn in (("17a", train_fit_17a), ("17b", train_resume_17b),
+                         ("17c", train_zero_17c)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, rt, kernels, card, root, prepare)
+            out[name]["sub_phase_s"] = time.perf_counter() - t0
+            print(f"{name} took {out[name]['sub_phase_s']:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out["17d"] = train_tune_17d(torch, rt, kernels, card, root,
+                                    out["17b"]["ref_losses"][0], prepare)
+        out["17d"]["sub_phase_s"] = time.perf_counter() - t0
+        print(f"17d took {out['17d']['sub_phase_s']:.1f} s", flush=True)
+    finally:
+        rt.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig.reset()
+        shutil.rmtree(root, ignore_errors=True)
+    left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+    if left:
+        fail(f"17: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["launches"] = out["17a"]["launches"]
+    print(f"train and tune on {card}: phase 17 took {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -4180,7 +4947,9 @@ def main() -> int:
                 "pd_monolithic": {}, "pd_handoff": {},
                 "pd_coalesced_prefill": {}, "worker_kernels": {},
                 "actor_serve": {}, "serve_http": {}, "serve_pd_http": {},
-                "batch_processor": {}, "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
+                "batch_processor": {}, "train_fit": {}, "train_resume": {},
+                "train_zero_rank0": {}, "tune_trial0": {}, "tune_trial1": {},
+                "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
 
@@ -4293,6 +5062,14 @@ def main() -> int:
                             expected16)
         launches["batch_processor"] = batch["launches"]
         print(json.dumps({"card": card, "batch": batch}), flush=True)
+        # phase 17: Train and Tune, in a fresh session
+        trained = train_phase(torch, ray_tpu_torch, all_kernels, card)
+        launches["train_fit"] = trained["17a"]["launches"]
+        launches["train_resume"] = trained["17b"]["launches"]
+        launches["train_zero_rank0"] = trained["17c"]["fp32"]["launches"]
+        for i, trial in enumerate(trained["17d"]["trials"]):
+            launches[f"tune_trial{i}"] = trial["launches"]
+        print(json.dumps({"card": card, "train_tune": trained}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

@@ -112,6 +112,7 @@ class _Actor:
         "restarts_left", "waiters", "kill_requested", "num_restarts",
         "max_task_retries",
         "groups", "method_groups", "group_in_flight", "group_queued",
+        "death_cause",
     )
 
     def __init__(self, aid: str, create_spec: dict):
@@ -146,6 +147,9 @@ class _Actor:
         self.num_restarts = 0
         self.waiters: list[tuple[MsgConnection, int]] = []  # ready-waiters
         self.kill_requested = False
+        # why creation failed, handed to every call on the dead actor
+        # (reference: RayActorError whose cause is the creation task's error)
+        self.death_cause: str | None = None
 
 
 class _VNode:
@@ -1282,9 +1286,9 @@ class GcsServer:
             # async; a dead target fails the RESULT objects so the error
             # surfaces at ray.get, not at .remote())
             spec = msg["spec"]
-            ok, _err = self._submit_actor_task(spec)
+            ok, err = self._submit_actor_task(spec)
             if not ok and isinstance(spec.get("num_returns"), int):
-                self._fail_task_objects(spec, "actor is dead")
+                self._fail_task_objects(spec, err)
         elif t == "wait_actor_ready":
             self._wait_actor_ready(conn, msg)
         elif t == "actor_info":
@@ -3459,6 +3463,7 @@ class GcsServer:
 
     def _on_task_done(self, msg: dict):
         wid = msg["wid"]
+        creation_failed: list[dict] = []  # calls queued on a failed creation
         with self.lock:
             # a completion can unpin the oldest lineage entries — re-arm the
             # bounded eviction walk (see _retain_lineage_locked)
@@ -3507,9 +3512,16 @@ class GcsServer:
                             except ConnectionClosed:
                                 pass
                 else:
-                    # creation failed → actor dead, release worker
+                    # creation failed → actor dead, release worker; its
+                    # queued calls fail with the constructor's error
                     if actor is not None:
                         actor.state = "dead"
+                        actor.death_cause = (
+                            f"actor {actor.name or actor.aid} died: its "
+                            f"creation task raised {error}")
+                        creation_failed.extend(actor.queue)
+                        actor.queue.clear()
+                        actor.group_queued = 0
                         self._observe_sched("actor", "failed", rtt)
                         self._trace_decision(actor.aid, "failed", error=error)
                         self._emit_event(
@@ -3525,7 +3537,8 @@ class GcsServer:
                                      {"actor_id": actor.aid, "state": "dead"})
                         for conn, rid in actor.waiters:
                             try:
-                                conn.send({"rid": rid, "ok": False, "error": error})
+                                conn.send({"rid": rid, "ok": False,
+                                           "error": actor.death_cause})
                             except ConnectionClosed:
                                 pass
                         actor.waiters = []
@@ -3612,9 +3625,18 @@ class GcsServer:
                     free_now.append(oid)
         if free_now:
             self._free_objects(free_now)
+        for queued in creation_failed:
+            self._fail_task_objects(queued, self._death_reason(queued))
         if any_shm:
             self._maybe_spill(host)
         self._schedule()
+
+    def _death_reason(self, spec: dict) -> str:
+        """Why a call on a dead actor fails: the creation task's error when
+        the constructor raised, else that the actor is dead."""
+        actor = self.actors.get(spec.get("actor_id"))
+        return (actor.death_cause if actor is not None and actor.death_cause
+                else "actor is dead")
 
     # ---------------------------------------------------------------- actors
 
@@ -3661,7 +3683,7 @@ class GcsServer:
         with self.lock:
             actor = self.actors.get(spec["actor_id"])
             if actor is None or actor.state == "dead":
-                return False, "ActorDiedError"
+                return False, self._death_reason(spec)
             if spec["num_returns"] == "streaming":
                 self.streams[spec["task_id"]] = {
                     "items": [], "done": False, "error": None,
@@ -3700,8 +3722,10 @@ class GcsServer:
             elif actor.state in ("pending", "restarting"):
                 actor.waiters.append((conn, msg["rid"]))
                 return
+            cause = actor.death_cause if actor is not None else None
         try:
-            conn.send({"rid": msg["rid"], "ok": False, "error": "ActorDiedError"})
+            conn.send({"rid": msg["rid"], "ok": False,
+                       "error": cause or "ActorDiedError"})
         except ConnectionClosed:
             pass
 

@@ -1203,7 +1203,8 @@ class CoreWorker:
             # stream state must exist before the generator polls: stay sync
             reply = self.rpc({"type": "actor_task", "spec": spec})
             if not reply.get("ok"):
-                raise ActorDiedError(f"actor {actor_id[:8]} is dead")
+                raise ActorDiedError(reply.get("error")
+                                     or f"actor {actor_id[:8]} is dead")
             return ObjectRefGenerator(task_id, self)
         # async push: one-way send — a dead actor fails the result objects
         # and the error surfaces at get(), same as the reference

@@ -931,40 +931,42 @@ class _ActorPool:
                 pass
 
 
-_pipeline_metric_cache: tuple | None = None
 _pipeline_seq = itertools.count(1)  # collision-free pipeline tags
 
 
 def _pipeline_metrics() -> tuple:
-    """Process-wide executor gauges/counters (one registration per process;
-    concurrent executors share them, distinguished by a pipeline tag)."""
-    global _pipeline_metric_cache
-    if _pipeline_metric_cache is None:
-        from ray_tpu_torch.util import metrics as _met
+    """Process-wide executor gauges/counters (concurrent executors share
+    them, distinguished by a pipeline tag). Looked up in the registry at
+    each executor's start (``get_or_create``), so a registry cleared in
+    between gets them registered anew; the JAX package keeps them in a
+    module-level cache, which a cleared registry leaves recording into
+    metrics no snapshot shows."""
+    from ray_tpu_torch.util import metrics as _met
 
-        _pipeline_metric_cache = (
-            _met.Gauge("ray_tpu_data_bytes_in_flight",
-                       "queued bytes across executor stages",
-                       tag_keys=("pipeline",)),
-            _met.Gauge("ray_tpu_data_blocks_queued",
-                       "queued items across executor stages",
-                       tag_keys=("pipeline",)),
-            _met.Counter("ray_tpu_data_backpressure_waits",
-                         "dispatches deferred by queue/byte backpressure",
-                         tag_keys=("pipeline",)),
-            _met.Counter("ray_tpu_data_block_retries_total",
-                         "block tasks resubmitted after SYSTEM errors "
-                         "(actor death / worker crash / lost object)",
-                         tag_keys=("pipeline",)),
-            _met.Counter("ray_tpu_data_actor_replacements_total",
-                         "dead map-pool actors replaced by supervision",
-                         tag_keys=("pipeline",)),
-            _met.Counter("ray_tpu_data_blocks_errored_total",
-                         "blocks permanently errored by UDF raises "
-                         "(skipped or surfaced per on_block_error)",
-                         tag_keys=("pipeline",)),
-        )
-    return _pipeline_metric_cache
+    tag = ("pipeline",)
+    return (
+        _met.get_or_create(_met.Gauge, "ray_tpu_data_bytes_in_flight",
+                           "queued bytes across executor stages",
+                           tag_keys=tag),
+        _met.get_or_create(_met.Gauge, "ray_tpu_data_blocks_queued",
+                           "queued items across executor stages",
+                           tag_keys=tag),
+        _met.get_or_create(_met.Counter, "ray_tpu_data_backpressure_waits",
+                           "dispatches deferred by queue/byte backpressure",
+                           tag_keys=tag),
+        _met.get_or_create(_met.Counter, "ray_tpu_data_block_retries_total",
+                           "block tasks resubmitted after SYSTEM errors "
+                           "(actor death / worker crash / lost object)",
+                           tag_keys=tag),
+        _met.get_or_create(_met.Counter,
+                           "ray_tpu_data_actor_replacements_total",
+                           "dead map-pool actors replaced by supervision",
+                           tag_keys=tag),
+        _met.get_or_create(_met.Counter, "ray_tpu_data_blocks_errored_total",
+                           "blocks permanently errored by UDF raises "
+                           "(skipped or surfaced per on_block_error)",
+                           tag_keys=tag),
+    )
 
 
 class StreamingExecutor:

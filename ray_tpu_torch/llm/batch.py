@@ -37,10 +37,10 @@ class _EngineWorker:
 
         llm_config = ser.loads(llm_config_blob)
         self.tokenizer = load_tokenizer(llm_config.model_loading_config.tokenizer)
-        # the runtime, like the JAX package's, leaves every call on an
-        # actor whose constructor raised waiting: keep the engine's build
-        # error (no card and no device=, a bad checkpoint) for each call
-        # to raise instead
+        # keep the engine's build error (no card and no device=, a bad
+        # checkpoint) for each call to raise as itself; the JAX package's
+        # runtime leaves calls on an actor whose constructor raised
+        # waiting, the port's fails them with ActorDiedError (its cause)
         self.error = None
         try:
             self.engine = LLMEngine.from_config(llm_config)

@@ -19,16 +19,18 @@ parameters.
   full size), and the updated shards are all-gathered back into the
   parameter. ``sharded_state_bytes`` is what this rank holds.
 
-The host-collective plane (``ZeroShardedOptimizer``, the JAX package's
-ZeRO-1 over its actor ring) stands on the port of ``util.collective`` and
-the train session: ROADMAP.md Queue 1 item 12.
+- **Host-collective plane**: ``ZeroShardedOptimizer``, ZeRO-1 over the
+  actor ring of ``util.collective``: the flat f32 vector stays a tensor on
+  the params' device, its 1/W shard is updated there by a port optimizer,
+  and the reduce-scatter and allgather run on numpy host copies.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Callable, Sequence
+from typing import Any, Callable, NamedTuple, Sequence
 
+import numpy as np
 import torch
 
 from ray_tpu_torch.parallel.mesh import (MESH_AXIS_DP, MESH_AXIS_FSDP,
@@ -220,3 +222,133 @@ def sharded_state_bytes(opt_state) -> int:
     if isinstance(opt_state, ZeroOptState):
         opt_state = opt_state.optimizer
     return optimizer_state_bytes(opt_state)
+
+
+# ------------------------------------------------------ host-collective plane
+
+
+class ZeroState(NamedTuple):
+    """Per-rank state of the host-plane ZeRO-1 optimizer."""
+
+    opt_state: Any        # the optimizer over THIS rank's flat shard only
+    step: int
+
+
+class ZeroShardedOptimizer:
+    """ZeRO-1 over the host-collective ring (`util/collective`).
+
+    `optimizer` is a factory (params tree → torch optimizer) of an
+    elementwise optimizer, e.g. ``functools.partial(adamw, learning_rate=
+    1e-2)`` or ``adamw_int8``'s. Each rank flattens the param tree into one
+    f32 vector, ring reduce-scatters the mean gradient (optionally
+    int8-quantized with error feedback), updates only its owned 1/W chunk
+    with its 1/W optimizer state, and allgathers the updated chunks back
+    into the full tree — every rank ends the step with identical params
+    and 1/W of the optimizer-state memory. The state's bytes go to the
+    ``ray_tpu_train_opt_state_bytes`` gauge after the first step (where the
+    JAX package reports at init: a torch optimizer's state is allocated by
+    its first step).
+
+    The collective group must be initialized before `init()`; all ranks
+    must call init/step in lockstep (the standard collective contract).
+    """
+
+    def __init__(self, optimizer: Callable, *,
+                 group_name: str = "default",
+                 grad_compression: str | None = None,
+                 param_compression: str | None = None,
+                 timeout: float = 120.0,
+                 name: str = "zero"):
+        self.opt = optimizer
+        self.group_name = group_name
+        self.grad_compression = grad_compression
+        self.param_compression = param_compression
+        self.timeout = timeout
+        # namespaces the error-feedback residuals: two optimizers sharing
+        # one collective group MUST use distinct names, or they'd share
+        # (and corrupt) each other's quantization residuals
+        self.name = name
+        self._meta = None   # (shapes, dtypes, sizes, n, per, own, W, rank)
+        self._shard: torch.Tensor | None = None
+
+    @staticmethod
+    def _flatten(tree) -> torch.Tensor:
+        return torch.cat([t.detach().reshape(-1).float()
+                          for t in param_leaves(tree)])
+
+    @staticmethod
+    def _pad(flat: torch.Tensor, per: int, W: int) -> torch.Tensor:
+        if flat.numel() == per * W:
+            return flat
+        return torch.cat([flat, flat.new_zeros(per * W - flat.numel())])
+
+    def init(self, params) -> ZeroState:
+        from ray_tpu_torch.util import collective as col
+
+        rank = col.get_rank(self.group_name)
+        W = col.get_world_size(self.group_name)
+        leaves = param_leaves(params)
+        shapes = [tuple(t.shape) for t in leaves]
+        dtypes = [t.dtype for t in leaves]
+        sizes = [t.numel() for t in leaves]
+        n = sum(sizes)
+        per = -(-n // W) if W > 1 else n
+        own = (rank + 1) % W if W > 1 else 0
+        self._meta = (shapes, dtypes, sizes, n, per, own, W, rank)
+        flat = self._pad(self._flatten(params), per, W)
+        self._shard = flat[own * per:(own + 1) * per].clone()
+        opt_state = self.opt({"shard": self._shard})
+        return ZeroState(opt_state=opt_state, step=0)
+
+    def _report_state_bytes(self, opt_state, rank: int) -> None:
+        from ray_tpu_torch.train import session
+
+        try:
+            session.report_opt_state(opt_state, rank=rank)
+        except Exception:  # noqa: BLE001 — metrics are best-effort
+            pass
+
+    def state_bytes(self, state: ZeroState) -> int:
+        return optimizer_state_bytes(state.opt_state)
+
+    def step(self, params, grads, state: ZeroState):
+        """One lockstep dp update. Returns (new_params, new_state); every
+        rank returns identical params."""
+        from ray_tpu_torch.util import collective as col
+
+        if self._meta is None:
+            raise RuntimeError("ZeroShardedOptimizer.step before init()")
+        shapes, dtypes, sizes, n, per, own, W, rank = self._meta
+        flat_grads = self._flatten(grads).cpu().numpy()
+        shard = col.reducescatter_flat(
+            flat_grads, op="mean", group_name=self.group_name,
+            timeout=self.timeout, compression=self.grad_compression,
+            ef_key=f"{self.name}:grads")
+        assert shard.index == own and shard.chunk_size == per
+        flat_params = self._pad(self._flatten(params), per, W)
+        p = self._shard
+        with torch.no_grad():
+            p.copy_(flat_params[own * per:(own + 1) * per])
+        p.grad = torch.from_numpy(
+            np.ascontiguousarray(shard.chunk, dtype=np.float32)).to(p.device)
+        state.opt_state.step()
+        p.grad = None
+        if state.step == 0:  # torch optimizers allocate state at step 1
+            self._report_state_bytes(state.opt_state, rank)
+        gathered = col.allgather(
+            p.detach().cpu().numpy(), group_name=self.group_name,
+            timeout=self.timeout, compression=self.param_compression,
+            ef_key=f"{self.name}:params")
+        full = np.empty((per * W,), np.float32)
+        for r, chunk in enumerate(gathered):
+            idx = (r + 1) % W if W > 1 else 0
+            full[idx * per:(idx + 1) * per] = chunk
+        flat = torch.from_numpy(full[:n]).to(p.device)
+        out_leaves, off = [], 0
+        for shape, dtype, size in zip(shapes, dtypes, sizes):
+            out_leaves.append(
+                flat[off:off + size].reshape(shape).to(dtype, copy=True))
+            off += size
+        new_params = _unflatten(params, out_leaves)
+        return new_params, ZeroState(opt_state=state.opt_state,
+                                     step=state.step + 1)

@@ -15,6 +15,7 @@ import glob
 import http.client
 import importlib
 import json
+import os
 import threading
 import time
 
@@ -66,12 +67,17 @@ class _Side:
         self.Engine = eng.LLMEngine if self.port else eng.TPUEngine
         self.RequestCancelledError = importlib.import_module(
             f"{pkg}.exceptions").RequestCancelledError
-        self.glob = importlib.import_module(
-            f"{pkg}._private.constants").SHM_CHANNEL_GLOB
+        self.prefix = importlib.import_module(
+            f"{pkg}._private.constants").SHM_CHANNEL_PREFIX
+        self.shm = importlib.import_module(
+            f"{pkg}.experimental.channel.mutable_shm")
         self.decoding = importlib.import_module(f"{pkg}.models.decoding")
 
     def shm_channels(self) -> set:
-        return set(glob.glob(self.glob))
+        """The package's channel segments in its channel directory (a
+        per-test one under `private_channels`: the host-wide /dev/shm also
+        holds other processes' live channels)."""
+        return set(glob.glob(os.path.join(self.shm._DIR, self.prefix + "*")))
 
     def paged_engine(self, **kw):
         kw.setdefault("max_slots", 4)
@@ -102,6 +108,18 @@ class _Side:
         first = int(jnp.argmax(logits))
         return exporter.export(np.asarray(kv["k"]), np.asarray(kv["v"]),
                                n, first, PAGE)
+
+
+@pytest.fixture
+def private_channels(monkeypatch, tmp_path):
+    """Each package's channels in a directory of this test's own (readers
+    open a channel by the path its ticket carries), so a leak check sees
+    only this test's segments, not those of tests running beside it."""
+    for pkg in ("ray_tpu", "ray_tpu_torch"):
+        d = tmp_path / pkg
+        d.mkdir()
+        monkeypatch.setattr(importlib.import_module(
+            f"{pkg}.experimental.channel.mutable_shm"), "_DIR", str(d))
 
 
 def _sides(tiny_model):
@@ -154,7 +172,8 @@ def _puller_abort(side: _Side):
 
 
 @pytest.mark.pd
-def test_puller_abort_kills_transfer_and_retires_sender(tiny_model):
+def test_puller_abort_kills_transfer_and_retires_sender(tiny_model,
+                                                         private_channels):
     """BatchedKVPuller.abort mid-stream: the sink fails with a cancellation
     KVTransferError, the sender's next write sees the closed channel and
     retires the transfer, and teardown leaves no segment behind."""
@@ -208,18 +227,20 @@ def _storm(side: _Side):
             t.start()
         time.sleep(0.25)  # the dropped transfers are mid-stream
         # client drops, in both orders the serve layer can issue them:
-        # request 1 gets DecodeServer._abort's pair (engine abort, then the
-        # ticket), request 3 only the ticket abort, so the transfer
-        # failure must reclaim its slot on its own. The ticket abort waits
-        # for the engine's to land: otherwise the puller's thread may fail
-        # the stream first, the slot comes back as a transfer failure and
-        # the engine counts no abort
+        # request 3 only the ticket abort, so the transfer failure must
+        # reclaim its slot on its own; it goes first, while its 4-page
+        # transfer is still open (under load the wait below can outlast
+        # it). Request 1 gets DecodeServer._abort's pair (engine abort,
+        # then the ticket). Its ticket abort waits for the engine's to
+        # land: otherwise the puller's thread may fail the stream first,
+        # the slot comes back as a transfer failure and the engine counts
+        # no abort
+        third = puller.abort(tickets[3]["ticket"])
         dec.abort_request(reqs[1].rid)
         deadline = time.monotonic() + 10.0
         while dec.stats()["aborts"] < 1 and time.monotonic() < deadline:
             time.sleep(0.01)
         puller.abort(tickets[1]["ticket"])
-        third = puller.abort(tickets[3]["ticket"])
         for t in threads:
             t.join(timeout=60.0)
         hung = any(t.is_alive() for t in threads)
@@ -245,7 +266,8 @@ def _storm(side: _Side):
 
 
 @pytest.mark.pd
-def test_disconnect_storm_survivors_token_exact(tiny_model):
+def test_disconnect_storm_survivors_token_exact(tiny_model,
+                                                private_channels):
     """PD requests with streamed admission and plain decodes at once; half
     the clients drop mid-decode (engine abort and ticket abort, the calls
     the serve layer makes on disconnect). Every slot and page returns, no

@@ -295,12 +295,30 @@ _ALLOWED = {
         "StreamingExecutor.release_owned", "_ActorPool._replace",
         "_ActorPool.note_done", "_ActorPool.shutdown", "_emit_data_event")),
     ("silent-swallow", "llm/batch.py", "Processor.shutdown"),
+    # Train, Tune and the host collectives (baseline.txt's train/, tune/
+    # and util/collective/ entries): best-effort retention deletes and
+    # markers, the vetoed prefix's cleanup, transfer telemetry and the
+    # opt-state gauge, teardown of dead workers, trials and rendezvous
+    # actors, the tuner's snapshot and PBT's exploit side channel
+    *(("silent-swallow", path, f) for path, f in (
+        ("train/checkpoint_manager.py",
+         "CheckpointManager._enforce_retention"),
+        ("train/checkpoint_manager.py",
+         "CheckpointManager._write_complete_marker"),
+        ("train/controller.py", "TrainController._consume_complete_iters"),
+        ("train/storage.py", "_observe_transfer"),
+        ("train/worker_group.py", "WorkerGroup.shutdown"),
+        ("train/zero.py", "ZeroShardedOptimizer._report_state_bytes"),
+        ("tune/tuner.py", "Tuner.fit"),
+        ("tune/tuner.py", "_TuneLoop._exploit"),
+        ("tune/tuner.py", "_TuneLoop._terminate"),
+        ("util/collective/collective.py", "destroy_collective_group"))),
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
 # the transfer plane, PD (below Serve and its deployments) and channel
-# modules, the runtime core's host modules, Serve, the LLM server, Data
-# and the batch processor
+# modules, the runtime core's host modules, Serve, the LLM server, Data,
+# the batch processor, Train, Tune and the host collectives
 _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "events", "fixed_point", "gcs", "gcs_storage", "ids",
             "local_mode", "log_monitor", "memory_monitor", "node",
@@ -314,6 +332,10 @@ _SERVE = ("__init__", "api", "batching", "config", "controller",
           "request_router", "rpc_ingress", "schema")
 _DATA = ("__init__", "aggregate", "archive", "avro", "block", "dataset",
          "datasource", "execution", "expressions", "lakehouse", "logical")
+_TRAIN = ("__init__", "_checkpoint", "backend", "checkpoint_manager",
+          "config", "controller", "session", "storage", "sync", "trainer",
+          "worker_group", "zero")
+_TUNE = ("__init__", "schedulers", "search", "trial", "tuner")
 _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
             "experimental/channel/mutable_shm.py",
             "experimental/channel/channel.py", "util/metrics.py",
@@ -325,7 +347,12 @@ _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
             "llm/batch.py") + tuple(
                 f"data/{m}.py" for m in _DATA) + tuple(
                 f"_private/{m}.py" for m in _RUNTIME) + tuple(
-                f"serve/{m}.py" for m in _SERVE)
+                f"serve/{m}.py" for m in _SERVE) + tuple(
+                f"train/{m}.py" for m in _TRAIN) + tuple(
+                f"tune/{m}.py" for m in _TUNE) + (
+                "util/collective/__init__.py",
+                "util/collective/collective.py",
+                "util/collective/quantization.py", "cluster_utils.py")
 
 
 def test_graft_check_invariants_hold_on_the_ports_host_modules():

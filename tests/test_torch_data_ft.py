@@ -17,7 +17,7 @@ import random
 import numpy as np
 import pytest
 
-from torch_twins import env_name, pair, same, start_sessions, sub
+from torch_twins import env_name, is_port, pair, same, start_sessions, sub
 
 BLOCK_ROWS = 50  # range(400, parallelism=8) → 8 blocks of 50 rows
 
@@ -63,6 +63,18 @@ def _metric_total(rt, name: str) -> float:
                if m["name"] == name for _tags, value in m["series"])
 
 
+def _live_metrics(rt) -> None:
+    """The JAX executor keeps its counters in a module-level cache; once
+    another test file in this process has cleared the JAX registry
+    (tests/test_torch_tracing.py compares both registries), the cached
+    counters record where no snapshot looks. Drop the cache so this file's
+    reads see the counters. The port's executor looks its counters up in
+    the registry at each start and needs nothing
+    (test_port_executor_counters_survive_a_cleared_registry)."""
+    if not is_port(rt):
+        _ex(rt)._pipeline_metric_cache = None
+
+
 def _drain(rt, ex) -> list:
     blocks = []
     try:
@@ -105,6 +117,7 @@ def test_skip_policy_counts_exactly(pkgs):
     def scn(rt):
         events = sub(rt, "_private.events")
         events.reset()
+        _live_metrics(rt)
         errored0 = _metric_total(rt, "ray_tpu_data_blocks_errored_total")
         ex = _ex(rt).StreamingExecutor(
             _pipeline(rt, _failing({1, 5}))._stages(), on_block_error="skip")
@@ -120,6 +133,22 @@ def test_skip_policy_counts_exactly(pkgs):
                              for e in ev))
 
     _same(pkgs, scn, (True, 2, 2, 2, 2, True))
+
+
+def test_port_executor_counters_survive_a_cleared_registry(pkgs):
+    """After ``util.metrics.clear_registry()`` (another test file in the
+    same process may call it) the port's executor still records its
+    errored blocks where a snapshot sees them."""
+    rt = pkgs[1]
+    sub(rt, "util.metrics").clear_registry()
+    ex = _ex(rt).StreamingExecutor(
+        _pipeline(rt, _failing({2}))._stages(), on_block_error="skip")
+    _drain(rt, ex)
+    sub(rt, "util.metrics").clear_registry()
+    ex = _ex(rt).StreamingExecutor(
+        _pipeline(rt, _failing({3, 4}))._stages(), on_block_error="skip")
+    _drain(rt, ex)
+    assert _metric_total(rt, "ray_tpu_data_blocks_errored_total") == 2
 
 
 def test_skip_policy_through_dataset_surface(pkgs):
@@ -180,6 +209,7 @@ def test_system_retries_do_not_consume_errored_budget(pkgs, tmp_path):
     def scn(rt):
         d = tmp_path / rt.__name__
         d.mkdir()
+        _live_metrics(rt)
         retries0 = _metric_total(rt, "ray_tpu_data_block_retries_total")
         # max_errored_blocks=0: any application skip would raise at once
         ex = _ex(rt).StreamingExecutor(

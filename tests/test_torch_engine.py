@@ -275,6 +275,19 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.data.execution\n"
         "import ray_tpu_torch.data.expressions\n"
         "import ray_tpu_torch.data.lakehouse, ray_tpu_torch.data.logical\n"
+        "import ray_tpu_torch.train.storage, ray_tpu_torch.train._checkpoint\n"
+        "import ray_tpu_torch.train.checkpoint_manager\n"
+        "import ray_tpu_torch.train.backend, ray_tpu_torch.train.config\n"
+        "import ray_tpu_torch.train.sync, ray_tpu_torch.train.session\n"
+        "import ray_tpu_torch.train.worker_group\n"
+        "import ray_tpu_torch.train.controller, ray_tpu_torch.train.trainer\n"
+        "import ray_tpu_torch.tune, ray_tpu_torch.tune.trial\n"
+        "import ray_tpu_torch.tune.search, ray_tpu_torch.tune.schedulers\n"
+        "import ray_tpu_torch.tune.tuner\n"
+        "import ray_tpu_torch.util.collective\n"
+        "import ray_tpu_torch.util.collective.collective\n"
+        "import ray_tpu_torch.util.collective.quantization\n"
+        "import ray_tpu_torch.cluster_utils\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and\n"
         "       (m == 'ray_tpu' or m.startswith(('ray_tpu.', 'jax')))]\n"
         "assert not bad, bad\n"

@@ -27,20 +27,14 @@ ALLOWED = {
                       "llm.config)",
     },
     "train": {
-        **{n: "item 12" for n in (
-            "BackendConfig", "Checkpoint", "CheckpointConfig",
-            "DataParallelTrainer", "FailureConfig", "Result", "RunConfig",
-            "ScalingConfig", "TorchConfig", "TorchTrainer",
-            "TrainingFailedError", "ZeroShardedOptimizer",
-            "broadcast_from_rank_zero", "collective_barrier",
-            "get_checkpoint", "get_context", "get_dataset_shard", "report",
-            "report_opt_state", "storage")},
-        "JaxConfig": "item 12 (the port's backend config replaces it)",
-        "JaxTrainer": "item 12 (TorchTrainer replaces it)",
+        "JaxConfig": "port: TorchConfig (gloo or nccl) is the backend",
+        "JaxTrainer": "port: TorchTrainer is the trainer",
         **{n: "port: the optimizers the reference takes from optax"
            for n in ("AdamWInt8", "adamw", "adamw_int8",
                      "optimizer_state_bytes", "param_leaves")},
     },
+    "tune": {},
+    "util.collective": {},
     "serve": {},
     "data": {},
     "util": {},
@@ -96,3 +90,26 @@ def test_queue3_e_names_are_exported():
     assert PagedKVExporter is kv_transfer.PagedKVExporter
     assert make_zero_train_step is zero.make_zero_train_step
     assert match_partition_rules is zero.match_partition_rules
+
+
+# cluster_utils has no __all__: its Cluster's methods and their keyword
+# arguments, with the port's renames and refusals
+CLUSTER_RENAMES = {"num_tpus": "num_gpus"}
+
+
+def test_cluster_utils_cluster_matches_the_reference_but_the_renames():
+    import inspect
+
+    from ray_tpu.cluster_utils import Cluster as Ref
+    from ray_tpu_torch.cluster_utils import Cluster as Port
+
+    def methods(cls):
+        return {n for n, f in vars(cls).items()
+                if callable(f) and not n.startswith("_")}
+
+    assert methods(Ref) == methods(Port)
+    for name in ("add_node", "remove_node", "shutdown"):
+        ref = [CLUSTER_RENAMES.get(p, p) for p in
+               inspect.signature(getattr(Ref, name)).parameters]
+        port = list(inspect.signature(getattr(Port, name)).parameters)
+        assert ref == port, (name, ref, port)

@@ -150,6 +150,23 @@ def gcs_counter(rt, name: str, tag_match: dict | None = None) -> float:
     return total
 
 
+def kill_made(pkgs, made: dict) -> None:
+    """Kill what scenarios recorded in `made` (package name → actor
+    handles, and collective group names, whose rendezvous actor goes): a
+    module-scoped session would otherwise keep every test's actors, each
+    pinning a worker process, where the reference's per-test cluster
+    drops them."""
+    for rt in pkgs:
+        for a in made.pop(rt.__name__, []):
+            try:
+                if isinstance(a, str):
+                    a = rt.get_actor(f"__collective::{a}",
+                                     namespace="_system")
+                rt.kill(a)
+            except Exception:  # noqa: BLE001 — already gone
+                pass
+
+
 def err_name(call) -> str | None:
     """The class name of what `call()` raises, or None."""
     try:
