@@ -321,6 +321,40 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       result the lower last loss, each worker's launches phase 6's formula.
    After ``shutdown()`` no segment of the session is left.
 
+18. Device objects and compiled DAGs (a new runtime session, after phase
+   17, before phase 11): ``RAY_TPU_TORCH_WORKER_PLATFORM=cuda`` before
+   ``init`` (the actors hold GPU shares under 1) and a 4 GiB store; both
+   restored after. Launch counts are zeroed just before each path and read
+   just after, in the actors and the driver.
+   a. A producer actor (``num_gpus=0.5``) builds Llama-3-8B (phase 10's
+      weights, from the seed); its ``@method(tensor_transport="device")
+      prefill`` returns the KV (2 x 64 MiB bf16) and f32 logits of one
+      1024-token prompt through the flash forward. The result object the
+      driver's store holds is under 64 KiB (markers only); a self-call
+      sees the producer's own storage and its greedy token equals
+      in-process prefill's; a consumer actor (``num_gpus=0.5``, another
+      process) gets CUDA tensors byte-equal to the producer's (sha256 of
+      the raw bytes in each process); once every ref is gone the
+      producer's registry is empty and its ``memory_allocated()`` back
+      within 1 MiB, within 15 s; flash launches 32 in the producer, none in
+      the consumer or the driver. Prints the export's ms and GB/s and the
+      consumer's get ms.
+   b. ``InputNode -> Engine.generate -> Post.ids``, the engine a
+      ``num_gpus=1`` actor holding an ``LLMEngine`` (paged, phase 4's
+      options, greedy, 32 tokens), ``Post`` a CPU actor, compiled with 64
+      KiB channels: on the channel plane (a fallback fails), phase 4's 8
+      prompts one after the other and then 8 in flight token-exact to an
+      in-process engine serving each prompt alone; flash = 32 x prefills
+      and ragged = 32 x decode steps in the engine actor, none in the
+      driver; ``list_compiled_dags()`` shows the DAG; teardown leaves no
+      ``rtpt_chan_*`` segment.
+   c. A chain of 4 actors sharing the card (``num_gpus=0.25``), each
+      ``x + 1`` on a bf16 CUDA tensor of 16 KiB and of 16 MiB: every step
+      equals ``x + 4`` exactly; the compiled step's median over 200 steps
+      beside the same chain through ``.remote()``, and the 16 MiB
+      payload's GB/s.
+   After ``shutdown()`` no segment of the session is left.
+
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -4536,6 +4570,614 @@ def train_phase(torch, rt, kernels, card: str, prepare=None) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 18
+
+DAG_ENV = {
+    # 18a's and 18c's actors hold a GPU share under 1, which binds no card:
+    # they reach it as the PD pools do
+    "RAY_TPU_TORCH_WORKER_PLATFORM": "cuda",
+    # 18a's export stages 128 MiB of KV (and the logits) through the store
+    "RAY_TPU_TORCH_STORE_CAPACITY": str(4 << 30)}
+DEV_PROMPT = 1024                # 18a's prompt, one bucket
+DEV_MARKERS_MAX = 64 << 10       # the result object in the driver's store
+DEV_MEM_SLACK = 1 << 20          # the producer's memory after the free
+DEV_FREE_S = 15.0
+DAG_BUFFER = 64 << 10            # 18b's channels: a prompt's or 32 ids
+CHAIN_STAGES = 4                 # 18c
+CHAIN_STEPS = 200
+CHAIN_SIZES = (16 << 10, 16 << 20)   # 18c's bf16 payloads, in bytes
+
+
+def device_prompt(vocab: int) -> list[int]:
+    """18a's 1024-token prompt, from a numpy seed."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + 18).integers(
+        0, vocab, size=DEV_PROMPT).tolist()
+
+
+def phase4_prompts(vocab: int) -> list[list[int]]:
+    """Phase 4's 8 prompts (serve()'s token rows of SERVE_LENGTHS)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    return [rng.integers(0, vocab, size=n).tolist() for n in SERVE_LENGTHS]
+
+
+def dag_expected(torch, cfg, params) -> dict:
+    """What phase 18 must reproduce, in process on phase 10's weights: the
+    greedy token of 18a's prompt from ``decoding.prefill`` (and its KV's
+    byte hashes, reported), and 18b's ids: an LLMEngine built as the DAG's
+    engine actor builds its own (phase 4's engine options), greedy with 32
+    tokens and no stop token, serving each of phase 4's prompts alone."""
+    from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+    from ray_tpu_torch.models import decoding
+
+    ids = torch.tensor([device_prompt(cfg.vocab_size)], device="cuda")
+    with torch.no_grad():
+        logits, kv = decoding.prefill(params, ids, DEV_PROMPT, cfg)
+    torch.cuda.synchronize()
+    out = {"token": int(torch.argmax(logits)),
+           "hashes": {n: tensor_sha(torch, t) for n, t in
+                      (("k", kv["k"]), ("v", kv["v"]), ("logits", logits))}}
+    del logits, kv
+    built = LLMConfig(engine_kwargs=http_engine_kwargs())
+    built.build_model = lambda device=None: (cfg, params)
+    eng = LLMEngine.from_config(built)
+    try:
+        sp = SamplingParams(max_tokens=HTTP_MAX_TOKENS, temperature=0.0)
+        out["ids"] = [eng.generate(p, sp)
+                      for p in phase4_prompts(cfg.vocab_size)]
+    finally:
+        eng.shutdown()
+    return out
+
+
+def tensor_sha(torch, t) -> str:
+    """sha256 of a tensor's raw bytes (read back to the host)."""
+    import hashlib
+
+    raw = t.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(raw.tobytes()).hexdigest()
+
+
+def device_producer(rt, prepare=None):
+    """18a's producer class: Llama-3-8B on its card (phase 10's weights,
+    from the seed), whose prefill returns the prompt's KV and logits as
+    device objects. Export times are read by wrapping the module's
+    export_to_store in this process (the worker calls it through the
+    module). Pickled by value into the actor."""
+
+    class Producer:
+        def __init__(self):
+            if prepare is not None:
+                prepare()
+            import time
+
+            import torch
+
+            from ray_tpu_torch.experimental import device_objects
+            from ray_tpu_torch.models import llama, transformer
+
+            self.cfg = llama.llama_config("8b")
+            self.params = transformer.init(
+                torch.Generator(device="cuda").manual_seed(SEED), self.cfg,
+                torch.device("cuda"), dtype=self.cfg.dtype)
+            torch.cuda.synchronize()
+            self.exports: list = []
+            self.made: dict = {}
+            export = device_objects.export_to_store
+
+            def timed(tensor_id, worker):
+                with device_objects._lock:
+                    t = device_objects._registry.get(tensor_id)
+                nbytes = 0 if t is None else t.numel() * t.element_size()
+                t0 = time.perf_counter()
+                oid = export(tensor_id, worker)
+                self.exports.append({"bytes": nbytes,
+                                     "s": time.perf_counter() - t0})
+                return oid
+
+            device_objects.export_to_store = timed
+
+        def fingerprints(self) -> dict:
+            import torch
+
+            return weight_fingerprints(torch, self.params)
+
+        def warm(self) -> None:
+            """A short prefill whose outputs are dropped: the process's
+            first matmuls allocate cuBLAS's workspace (32 MiB, counted in
+            memory_allocated() for good), which must not count against
+            the measured call."""
+            import torch
+
+            from ray_tpu_torch.models import decoding
+
+            tokens = torch.zeros((1, 64), dtype=torch.int64, device="cuda")
+            with torch.no_grad():
+                decoding.prefill(self.params, tokens, 64, self.cfg)
+            torch.cuda.synchronize()
+
+        def memory(self) -> tuple:
+            import gc
+
+            import torch
+
+            from ray_tpu_torch.experimental import device_objects
+
+            gc.collect()
+            torch.cuda.synchronize()
+            return (device_objects.registry_size(),
+                    torch.cuda.memory_allocated())
+
+        def probe(self, zero_counts: bool = False) -> dict:
+            kernels = loop_kernels()
+            out = counts(kernels)
+            if zero_counts:
+                zero(kernels)
+            return {"launches": out, "exports": list(self.exports),
+                    "n_layers": self.cfg.n_layers}
+
+        @rt.method(tensor_transport="device")
+        def prefill(self, ids):
+            import torch
+
+            from ray_tpu_torch.models import decoding
+
+            tokens = torch.tensor([ids], device="cuda")
+            with torch.no_grad():
+                logits, kv = decoding.prefill(self.params, tokens, len(ids),
+                                              self.cfg)
+            torch.cuda.synchronize()
+            out = {"k": kv["k"], "v": kv["v"], "logits": logits}
+            self.made = {n: (t.data_ptr(), tensor_sha(torch, t))
+                         for n, t in out.items()}
+            return out
+
+        def self_call(self, payload) -> dict:
+            """The payload resolved in this process: the registry's own
+            tensors (same storage), and the greedy token."""
+            import torch
+
+            return {"same_ptr": all(payload[n].data_ptr() == ptr
+                                    for n, (ptr, _h) in self.made.items()),
+                    "token": int(torch.argmax(payload["logits"])),
+                    "hashes": {n: h for n, (_p, h) in self.made.items()}}
+
+    return Producer
+
+
+def device_consumer(prepare=None):
+    """18a's consumer class: resolves the producer's ref in its own process
+    and reports what it got; pickled by value into the actor."""
+
+    class Consumer:
+        def __init__(self):
+            if prepare is not None:
+                prepare()
+            import torch
+
+            torch.empty(1, device=torch.device("cuda"))
+            zero(loop_kernels())
+
+        def take(self, refs) -> dict:
+            import time
+
+            import ray_tpu_torch
+            import torch
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            payload = ray_tpu_torch.get(refs[0], timeout=300)
+            torch.cuda.synchronize()
+            get_s = time.perf_counter() - t0
+            out = {"get_ms": 1e3 * get_s,
+                   "tensors": {n: {"device": t.device.type,
+                                   "dtype": str(t.dtype),
+                                   "shape": list(t.shape),
+                                   "sha": tensor_sha(torch, t)}
+                               for n, t in payload.items()},
+                   "launches": counts(loop_kernels())}
+            del payload
+            return out
+
+    return Consumer
+
+
+def dag_engine_actor(prepare=None):
+    """18b's engine actor class: an LLMEngine on the paged layout, built as
+    phase 14's replica builds its engine (Llama-3-8B, phase 10's weights
+    from the seed); `generate` serves one prompt greedily, 32 tokens."""
+
+    class Engine:
+        def __init__(self):
+            if prepare is not None:
+                prepare()
+            from ray_tpu_torch.llm import (LLMConfig, LLMEngine,
+                                           ModelLoadingConfig, SamplingParams)
+
+            self.engine = LLMEngine.from_config(LLMConfig(
+                model_loading_config=ModelLoadingConfig(model_id="8b"),
+                engine_kwargs=http_engine_kwargs()))
+            self.sp = SamplingParams(max_tokens=HTTP_MAX_TOKENS,
+                                     temperature=0.0)
+
+        def generate(self, ids):
+            return self.engine.generate(list(ids), self.sp)
+
+        def probe(self, zero_counts: bool = False) -> dict:
+            kernels = loop_kernels()
+            st = self.engine.stats()
+            out = {"launches": counts(kernels), "prefills": st["prefills"],
+                   "decode_steps": st["decode_steps"],
+                   "n_layers": self.engine.cfg.n_layers}
+            if zero_counts:
+                zero(kernels)
+            return out
+
+        def fingerprints(self) -> dict:
+            import torch
+
+            return weight_fingerprints(torch, self.engine.params)
+
+    return Engine
+
+
+class DagPost:
+    """18b's CPU stage: the engine's token ids as plain ints."""
+
+    def ids(self, out):
+        return [int(t) for t in out]
+
+
+class ChainStage:
+    """18c's stage: x + 1 on the tensor it is handed (on its card)."""
+
+    def __init__(self, prepare=None):
+        if prepare is not None:
+            prepare()
+        import torch
+
+        torch.empty(1, device=torch.device("cuda"))
+
+    def work(self, x):
+        return x + 1
+
+
+def median_us(samples) -> float:
+    import statistics
+
+    return 1e6 * statistics.median(samples)
+
+
+def device_objects_18a(torch, rt, card: str, expected: dict, fps10: dict,
+                       prepare=None) -> dict:
+    """18a: the producer's prefill result crosses as markers; a self-call
+    sees its own storage, a consumer in another process gets byte-equal
+    CUDA tensors, and dropping the refs frees the producer's memory."""
+    from ray_tpu_torch.util import state
+
+    Producer = rt.remote(num_gpus=0.5)(device_producer(rt, prepare))
+    Consumer = rt.remote(num_gpus=0.5)(device_consumer(prepare))
+    p, c = Producer.remote(), Consumer.remote()
+    kernels = loop_kernels()
+    out = {}
+    try:
+        fps = rt.get(p.fingerprints.remote(), timeout=600)
+        if fps != fps10:
+            fail(f"18a: the producer's weights differ from phase 10's: "
+                 f"{fps} vs {fps10}")
+        ids = device_prompt(llama_vocab())
+        rt.get(p.warm.remote(), timeout=300)
+        reg0, mem0 = rt.get(p.memory.remote(), timeout=60)
+        rt.get(p.probe.remote(True), timeout=60)
+        zero(kernels)  # the main path starts here
+        t0 = time.perf_counter()
+        ref = p.prefill.remote(ids)
+        rt.wait([ref], num_returns=1, timeout=300)
+        out["prefill_call_ms"] = 1e3 * (time.perf_counter() - t0)
+        rows = state.list_objects(filters=[("object_id", "=", ref.hex())])
+        out["result_object_bytes"] = rows[0]["size"] if rows else None
+        mine = rt.get(p.self_call.remote(ref), timeout=120)
+        got = rt.get(c.take.remote([ref]), timeout=600)
+        prod = rt.get(p.probe.remote(), timeout=60)
+        out["launches"] = prod["launches"]
+        out["consumer_launches"] = got["launches"]
+        out["driver_launches"] = counts(kernels)
+        del ref
+        gc.collect()
+        t_free = time.perf_counter()
+        reg, mem = reg0 + 1, None
+        while time.perf_counter() - t_free < DEV_FREE_S:
+            reg, mem = rt.get(p.memory.remote(), timeout=60)
+            if reg == reg0 and abs(mem - mem0) <= DEV_MEM_SLACK:
+                break
+            time.sleep(0.2)
+        out["free_s"] = time.perf_counter() - t_free
+    finally:
+        for a in (p, c):
+            rt.kill(a)
+    n_layers = prod["n_layers"]
+    if out["result_object_bytes"] is None \
+            or out["result_object_bytes"] >= DEV_MARKERS_MAX:
+        fail(f"18a: the result object holds {out['result_object_bytes']} "
+             f"bytes in the driver's store (markers only: < "
+             f"{DEV_MARKERS_MAX})")
+    if not mine["same_ptr"]:
+        fail("18a: the self-call's tensors are not the producer's own")
+    if mine["token"] != expected["token"]:
+        fail(f"18a: greedy token {mine['token']} != in-process prefill's "
+             f"{expected['token']}")
+    for n, t in got["tensors"].items():
+        if t["device"] != "cuda":
+            fail(f"18a: the consumer's {n} is on {t['device']}")
+        if t["sha"] != mine["hashes"][n]:
+            fail(f"18a: the consumer's {n} differs from the producer's bytes")
+    if sorted(got["tensors"]) != ["k", "logits", "v"]:
+        fail(f"18a: the consumer got {sorted(got['tensors'])}")
+    want = {"flash_attention_fwd_bf16": n_layers}
+    for sym, n in out["launches"].items():
+        if n != want.get(sym, 0):
+            fail(f"18a: {sym} launched {n} times in the producer, expected "
+                 f"{want.get(sym, 0)}")
+    for where in ("consumer_launches", "driver_launches"):
+        if any(out[where].values()):
+            fail(f"18a: launches in the {where.split('_')[0]}: {out[where]}")
+    if reg != reg0 or abs(mem - mem0) > DEV_MEM_SLACK:
+        fail(f"18a: {DEV_FREE_S} s after the last ref went the producer "
+             f"holds {reg} registry entries (before: {reg0}) and "
+             f"{mem - mem0} bytes more than before the call")
+    ex = prod["exports"]
+    ex_bytes, ex_s = sum(e["bytes"] for e in ex), sum(e["s"] for e in ex)
+    out.update({
+        "self_call": {"same_ptr": True, "token": mine["token"]},
+        "kv_equal_in_process": all(
+            mine["hashes"][n] == expected["hashes"][n] for n in ("k", "v")),
+        "consumer": {n: {k: v for k, v in t.items() if k != "sha"}
+                     for n, t in got["tensors"].items()},
+        "consumer_get_ms": got["get_ms"], "exports": ex,
+        "export_ms": 1e3 * ex_s, "export_bytes": ex_bytes,
+        "export_GBps": ex_bytes / ex_s / 1e9 if ex_s else None,
+        "memory_before": mem0, "memory_after": mem})
+    print(f"18a device objects on {card}: result object "
+          f"{out['result_object_bytes']} B in the driver's store; export of "
+          f"{len(ex)} tensors, {ex_bytes / 2**20:.1f} MiB in "
+          f"{out['export_ms']:.3f} ms ({out['export_GBps']:.3f} GB/s); the "
+          f"consumer's get {got['get_ms']:.3f} ms; freed in "
+          f"{out['free_s']:.3f} s", flush=True)
+    return out
+
+
+def llama_vocab() -> int:
+    from ray_tpu_torch.models import llama
+
+    return llama.llama_config("8b").vocab_size
+
+
+def compiled_llm_18b(torch, rt, card: str, expected: dict, fps10: dict,
+                     prepare=None) -> dict:
+    """18b: InputNode → Engine.generate → Post.ids compiled onto the
+    channel plane; phase 4's prompts one after the other, then 8 in
+    flight, token-exact to in-process serving of each prompt alone."""
+    import glob
+
+    from ray_tpu_torch._private.constants import SHM_CHANNEL_GLOB
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.util import state
+
+    Engine = rt.remote(num_gpus=1)(dag_engine_actor(prepare))
+    Post = rt.remote(DagPost)
+    eng, post = Engine.remote(), Post.remote()
+    kernels = loop_kernels()
+    prompts = phase4_prompts(llama_vocab())
+    chans0 = set(glob.glob(SHM_CHANNEL_GLOB))
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        fps = rt.get(eng.fingerprints.remote(), timeout=900)
+        out["engine_ready_s"] = time.perf_counter() - t0
+        if fps != fps10:
+            fail(f"18b: the engine actor's weights differ from phase 10's: "
+                 f"{fps} vs {fps10}")
+        before = rt.get(eng.probe.remote(True), timeout=60)
+        zero(kernels)  # the main path starts here
+        with InputNode() as inp:
+            dag = post.ids.bind(eng.generate.bind(inp))
+        t0 = time.perf_counter()
+        compiled = dag.experimental_compile(
+            channel_buffer_bytes=DAG_BUFFER,
+            max_inflight_executions=len(prompts))
+        out["compile_s"] = time.perf_counter() - t0
+        out["uses_channels"] = compiled.uses_channels
+        out["fallback_reason"] = compiled.fallback_reason
+        if not compiled.uses_channels or compiled.fallback_reason is not None:
+            compiled.teardown()
+            fail(f"18b: the DAG took the submit path "
+                 f"({compiled.fallback_reason})")
+        rows = state.list_compiled_dags(
+            filters=[("dag_id", "=", compiled.dag_id)])
+        out["registry"] = rows[0] if rows else None
+        t0 = time.perf_counter()
+        seq = [compiled.execute(p).result(timeout=600) for p in prompts]
+        out["sequential_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        futs = [compiled.execute(p) for p in prompts]
+        inflight = [f.result(timeout=600) for f in futs]
+        out["in_flight_s"] = time.perf_counter() - t0
+        compiled.teardown()
+        out["registry_after"] = state.list_compiled_dags(
+            filters=[("dag_id", "=", compiled.dag_id)])
+        out["driver_launches"] = counts(kernels)
+        after = rt.get(eng.probe.remote(), timeout=60)
+        # the actor serves normal calls after teardown
+    finally:
+        for a in (eng, post):
+            rt.kill(a)
+    left = set(glob.glob(SHM_CHANNEL_GLOB)) - chans0
+    if left:
+        fail(f"18b: teardown left channel segments {sorted(left)}")
+    reg = out["registry"]
+    if not reg or reg.get("plane") != "channels":
+        fail(f"18b: list_compiled_dags() shows {reg}")
+    if out["registry_after"]:
+        fail("18b: the DAG is still registered after teardown")
+    for name, got in (("one after the other", seq), ("8 in flight", inflight)):
+        for i, (g, want) in enumerate(zip(got, expected["ids"])):
+            if g != want:
+                fail(f"18b ({name}): prompt {i} of {SERVE_LENGTHS[i]} "
+                     f"tokens gave {g[:8]}..., in process {want[:8]}...")
+    prefills = after["prefills"] - before["prefills"]
+    steps = after["decode_steps"] - before["decode_steps"]
+    L = after["n_layers"]
+    want = {"flash_attention_fwd_bf16": L * prefills,
+            "ragged_paged_attention_bf16": L * steps}
+    if not prefills or not steps:
+        fail(f"18b: the engine ran {prefills} prefills, {steps} steps")
+    for sym, n in after["launches"].items():
+        if n != want.get(sym, 0):
+            fail(f"18b: {sym} launched {n} times in the engine actor, "
+                 f"expected {want.get(sym, 0)}")
+    if any(out["driver_launches"].values()):
+        fail(f"18b: launches in the driver: {out['driver_launches']}")
+    out.update({"launches": after["launches"], "prefills": prefills,
+                "decode_steps": steps, "requests": 2 * len(prompts),
+                "tokens_per_s_in_flight":
+                    sum(len(g) for g in inflight) / out["in_flight_s"]})
+    out["registry"] = {k: reg[k] for k in ("dag_id", "plane", "channels",
+                                           "actors")}
+    print(f"18b compiled DAG on {card}: {len(prompts)} prompts one after the "
+          f"other in {out['sequential_s']:.3f} s, 8 in flight in "
+          f"{out['in_flight_s']:.3f} s "
+          f"({out['tokens_per_s_in_flight']:.1f} tokens/s), token-exact; "
+          f"{reg['channels']} channels; compile {out['compile_s']:.3f} s",
+          flush=True)
+    return out
+
+
+def chain_gate(path: str, nbytes: int, bad: list) -> None:
+    """18c's gate: every step came back a CUDA tensor equal to x + 4."""
+    off, wrong = bad
+    if off or wrong:
+        fail(f"18c: of {CHAIN_STEPS} {path} steps of {nbytes} B, {off} came "
+             f"back off the card and {wrong} differ from x + {CHAIN_STAGES}")
+
+
+def channel_chain_18c(torch, rt, card: str, prepare=None) -> dict:
+    """18c: x + 1 through 4 actors sharing the card, on bf16 CUDA tensors
+    of 16 KiB and 16 MiB: compiled onto channels, then through .remote();
+    exact, with median step times."""
+    Stage = rt.remote(num_gpus=1 / CHAIN_STAGES)(ChainStage)
+    actors = [Stage.remote(prepare) for _ in range(CHAIN_STAGES)]
+    from ray_tpu_torch.dag import InputNode
+
+    out = {"sizes": {}}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    try:
+        with InputNode() as inp:
+            node = inp
+            for a in actors:
+                node = a.work.bind(node)
+        compiled = node.experimental_compile(
+            channel_buffer_bytes=max(CHAIN_SIZES) + (64 << 10))
+        if not compiled.uses_channels or compiled.fallback_reason is not None:
+            compiled.teardown()
+            fail(f"18c: the chain took the submit path "
+                 f"({compiled.fallback_reason})")
+        xs = {}
+        for nbytes in CHAIN_SIZES:
+            # small integers: x + 4 is exact in bf16
+            x = torch.randint(0, 100, (nbytes // 2,), generator=gen,
+                              device="cuda").to(torch.bfloat16)
+            want = x + CHAIN_STAGES
+            xs[nbytes] = (x, want)
+            for _ in range(10):
+                compiled.execute(x).result(timeout=120)
+            steps, bad = [], [0, 0]
+            for _ in range(CHAIN_STEPS):
+                t0 = time.perf_counter()
+                y = compiled.execute(x).result(timeout=120)
+                steps.append(time.perf_counter() - t0)
+                bad[0] += not y.is_cuda
+                bad[1] += not torch.equal(y.to(want.device), want)
+            chain_gate("compiled", nbytes, bad)
+            out["sizes"][nbytes] = {"compiled_us": median_us(steps)}
+        compiled.teardown()
+        for nbytes, (x, want) in xs.items():
+            def chain():
+                ref = x
+                for a in actors:
+                    ref = a.work.remote(ref)
+                return rt.get(ref, timeout=120)
+
+            for _ in range(3):
+                chain()
+            steps, bad = [], [0, 0]
+            for _ in range(CHAIN_STEPS):
+                t0 = time.perf_counter()
+                y = chain()
+                steps.append(time.perf_counter() - t0)
+                bad[0] += not y.is_cuda
+                bad[1] += not torch.equal(y.to(want.device), want)
+            chain_gate(".remote()", nbytes, bad)
+            row = out["sizes"][nbytes]
+            row["remote_us"] = median_us(steps)
+            row["payload_GBps"] = nbytes / (row["compiled_us"] * 1e-6) / 1e9
+            row["speedup"] = row["remote_us"] / row["compiled_us"]
+    finally:
+        for a in actors:
+            rt.kill(a)
+    for nbytes, row in out["sizes"].items():
+        print(f"18c chain of {CHAIN_STAGES} on {card}, {nbytes} B bf16: "
+              f"compiled step median {row['compiled_us']:.1f} us, .remote() "
+              f"{row['remote_us']:.1f} us ({row['speedup']:.2f}x), "
+              f"{row['payload_GBps']:.3f} GB/s of payload", flush=True)
+    return out
+
+
+def dag_phase(torch, rt, card: str, expected: dict, fps10: dict,
+              prepare=None) -> dict:
+    """Phase 18 in a fresh session with DAG_ENV: 18a, 18b, 18c; after
+    shutdown() no segment of the session is left."""
+    import glob
+
+    from ray_tpu_torch._private.ray_config import RayConfig
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in DAG_ENV}
+    os.environ.update(DAG_ENV)
+    RayConfig.reset()
+    out = {}
+    try:
+        info = rt.init(num_cpus=8)
+        sid = out["session"] = info["session_id"]
+        for name, fn, args in (
+                ("18a", device_objects_18a, (expected, fps10)),
+                ("18b", compiled_llm_18b, (expected, fps10)),
+                ("18c", channel_chain_18c, ())):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, rt, card, *args, prepare=prepare)
+            out[name]["sub_phase_s"] = time.perf_counter() - t0
+            print(f"{name} took {out[name]['sub_phase_s']:.1f} s", flush=True)
+    finally:
+        rt.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig.reset()
+    left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+    if left:
+        fail(f"18: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"device objects and compiled DAGs on {card}: phase 18 took "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -4949,6 +5591,7 @@ def main() -> int:
                 "actor_serve": {}, "serve_http": {}, "serve_pd_http": {},
                 "batch_processor": {}, "train_fit": {}, "train_resume": {},
                 "train_zero_rank0": {}, "tune_trial0": {}, "tune_trial1": {},
+                "device_producer": {}, "dag_engine": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -5030,6 +5673,7 @@ def main() -> int:
         expected14 = http_expected(torch, cfg8b, params8b)
         expected15 = pd_expected(torch, cfg8b, params8b)
         expected16 = batch_expected(torch, cfg8b, params8b)
+        expected18 = dag_expected(torch, cfg8b, params8b)
         fps10 = weight_fingerprints(torch, params8b)
         del params8b
         gc.collect()  # engines that hold the 8B weights in reference cycles
@@ -5070,6 +5714,11 @@ def main() -> int:
         for i, trial in enumerate(trained["17d"]["trials"]):
             launches[f"tune_trial{i}"] = trial["launches"]
         print(json.dumps({"card": card, "train_tune": trained}), flush=True)
+        # phase 18: device objects and a compiled DAG, in a fresh session
+        dagged = dag_phase(torch, ray_tpu_torch, card, expected18, fps10)
+        launches["device_producer"] = dagged["18a"]["launches"]
+        launches["dag_engine"] = dagged["18b"]["launches"]
+        print(json.dumps({"card": card, "dag": dagged}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

@@ -23,7 +23,8 @@ from ray_tpu_torch._private import serialization as ser
 from ray_tpu_torch._private.ids import ActorID, ObjectID, TaskID, WorkerID
 from ray_tpu_torch._private.object_store import make_object_store
 from ray_tpu_torch._private.protocol import ConnectionClosed, connect_address
-from ray_tpu_torch._private.constants import EXEC_LOOP_METHOD
+from ray_tpu_torch._private.constants import (EXEC_LOOP_METHOD,
+                                              TENSOR_TRANSPORT_ATTR)
 from ray_tpu_torch.exceptions import (
     _not_ported,
     ActorDiedError,
@@ -575,6 +576,35 @@ class CoreWorker:
 
                     threading.Thread(target=_profile, daemon=True,
                                      name="profiler").start()
+                elif msg.get("type") == "free_device_tensors":
+                    from ray_tpu_torch.experimental import device_objects
+
+                    device_objects.free_device_tensors(
+                        msg.get("tensor_ids", ()), worker=self)
+                elif msg.get("type") == "do_export_tensor":
+                    # device objects: another process needs one of our
+                    # tensors; the export runs off the recv thread (it
+                    # makes the device→host copy)
+                    def _export(m=msg):
+                        from ray_tpu_torch.experimental import device_objects
+
+                        try:
+                            oid = device_objects.export_to_store(
+                                m["tensor_id"], self)
+                            self.send_no_reply(
+                                {"type": "export_tensor_done",
+                                 "token": m["token"], "oid": oid})
+                        except Exception as e:  # noqa: BLE001
+                            try:
+                                self.send_no_reply(
+                                    {"type": "export_tensor_done",
+                                     "token": m["token"], "oid": None,
+                                     "error": repr(e)})
+                            except ConnectionClosed:
+                                pass
+
+                    threading.Thread(target=_export, daemon=True,
+                                     name="rdt-export").start()
                 elif msg.get("type") == "stream_cancel":
                     # consumer released the generator: stop producing
                     tid = msg["task_id"]
@@ -1277,13 +1307,20 @@ class CoreWorker:
         return value
 
     def _loads_restoring(self, buf, owner=None):
-        """Deserialize a stored value. `owner` is the store pin wrapper
-        backing `buf`: zero-copy arrays and CPU tensors tether it so the
-        arena slot cannot be recycled while they are alive, even after the
-        ref itself is freed. (The JAX package also resolves device-object
-        markers here; the port has no device objects yet, ROADMAP.md
-        Queue 1 item 13, so no payload carries one.)"""
-        return ser.loads(buf, owner=owner)
+        """Deserialize, resolving device-object markers when (and only
+        when) the payload constructed one during unpickling: exact detection
+        at any nesting depth. `owner` is the store pin wrapper backing
+        `buf`: zero-copy arrays and CPU tensors tether it so the arena slot
+        cannot be recycled while they are alive, even after the ref itself
+        is freed."""
+        from ray_tpu_torch.experimental.device_objects import (marker_capture,
+                                                               restore)
+
+        with marker_capture() as saw:
+            value = ser.loads(buf, owner=owner)
+        if saw():
+            value = restore(value, self)
+        return value
 
     def _pull_remote(self, oid: str, reply: dict) -> bool:
         """Object is in shm on another host. The port runs on one host:
@@ -1703,6 +1740,8 @@ class CoreWorker:
         error_blob = None
         results = []
         contained_map: dict = {}
+        _extract_dev = False
+        _dev_map: dict = {}  # oid → tensor ids contained in THAT result
         self._task_ctx.task_id = spec["task_id"]
         self._task_ctx.namespace = spec.get("caller_ns")
         strat = spec.get("strategy") or {}
@@ -1752,9 +1791,18 @@ class CoreWorker:
             elif kind == "actor_task":
                 instance = self.actors[spec["actor_id"]]
                 if spec["method"] == EXEC_LOOP_METHOD:
-                    # the compiled-DAG channel plane's per-actor loop
-                    raise _not_ported("the compiled-DAG exec loop",
-                                      "item 16")
+                    # compiled-DAG channel plane: the provisioned per-actor
+                    # loop runs as a (long-lived) actor task so teardown
+                    # joins it through the normal result path (reference:
+                    # compiled_dag_node.py do_exec_tasks). The executor is
+                    # passed so async ops run on the actor's own event loop.
+                    from ray_tpu_torch.dag.channel_execution import \
+                        actor_exec_loop
+
+                    out = actor_exec_loop(
+                        instance, *args,
+                        _execer=self._actor_pools.get(spec["actor_id"]),
+                        **kwargs)
                 else:
                     method = getattr(instance, spec["method"])
                     import inspect as _inspect
@@ -1767,6 +1815,9 @@ class CoreWorker:
                         out = execer.run_coroutine_sync(method(*args, **kwargs))
                     else:
                         out = method(*args, **kwargs)
+                    if getattr(getattr(method, "__func__", method),
+                               TENSOR_TRANSPORT_ATTR, None):
+                        _extract_dev = True
             else:
                 raise RayTpuError(f"unknown task kind {kind}")
             n = spec["num_returns"]
@@ -1778,6 +1829,18 @@ class CoreWorker:
                 values = [out] if n == 1 else (list(out) if n > 0 else [])
             if isinstance(n, int) and n > 1 and len(values) != n:
                 raise ValueError(f"task declared num_returns={n} but returned {len(values)} values")
+            if _extract_dev:
+                # device objects: returned tensors stay in this process;
+                # only small markers cross the control plane. Extraction is
+                # PER RETURN VALUE so the GCS can free each result's
+                # registry entries independently (freeing return 0 must not
+                # drop tensors still referenced by a live return 1).
+                from ray_tpu_torch.experimental import device_objects
+
+                for i in range(len(values)):
+                    values[i], tids = device_objects.extract(values[i], self.wid)
+                    if tids:
+                        _dev_map[f"{spec['task_id']}r{i:04d}"] = tids
             for i, val in enumerate(values):
                 oid = f"{spec['task_id']}r{i:04d}"
                 (parts, total), refs = _serialize_capturing(ser.dumps_into, val)
@@ -1842,6 +1905,10 @@ class CoreWorker:
                 "task_id": spec["task_id"],
                 "results": results, "error": error_blob,
                 "contained": contained_map}
+        if _dev_map:
+            # registry lifetime rides each result object: the GCS tells us to
+            # drop a result's device entries when THAT object is freed
+            done["device_tensors"] = _dev_map
         return done
 
     def register_direct_results(self, spec: dict, done: dict, server) -> None:

@@ -10,8 +10,8 @@ from __future__ import annotations
 from typing import Any
 
 from ray_tpu_torch._private import serialization as ser
-from ray_tpu_torch._private.constants import CONCURRENCY_GROUP_ATTR
-from ray_tpu_torch.exceptions import _not_ported
+from ray_tpu_torch._private.constants import (CONCURRENCY_GROUP_ATTR,
+                                              TENSOR_TRANSPORT_ATTR)
 from ray_tpu_torch.remote_function import _build_resources
 
 
@@ -19,17 +19,21 @@ def method(*, concurrency_group: str | None = None,
            tensor_transport: str | None = None):
     """Per-method options on actor classes (reference: @ray.method,
     python/ray/actor.py). `concurrency_group` routes the method to a named
-    pool declared via @remote(concurrency_groups={...}).
-    `tensor_transport=` (device-resident results passed by reference) is
-    not ported yet: ROADMAP.md Queue 1 item 13. Return arity is set per
-    call with `.options(num_returns=N)`."""
-    if tensor_transport is not None:
-        raise _not_ported(f"tensor_transport={tensor_transport!r} (device "
-                          "objects)", "item 13")
+    pool declared via @remote(concurrency_groups={...});
+    `tensor_transport="device"` keeps returned torch tensors in the owner's
+    memory (its card's, for CUDA tensors) and passes them by reference
+    (reference: RDT @ray.method(tensor_transport=...),
+    gpu_object_manager.py:84). The JAX package's alias "tpu" is refused.
+    Return arity is set per call with `.options(num_returns=N)`."""
 
     def decorate(fn):
         if concurrency_group is not None:
             setattr(fn, CONCURRENCY_GROUP_ATTR, concurrency_group)
+        if tensor_transport is not None:
+            if tensor_transport != "device":
+                raise ValueError(f"tensor_transport must be 'device', got "
+                                 f"{tensor_transport!r}")
+            setattr(fn, TENSOR_TRANSPORT_ATTR, tensor_transport)
         return fn
 
     return decorate

@@ -1,9 +1,17 @@
-"""Channels of the port: the mutable shared-memory SPSC channel the PD
-KV transfer plane runs on. The broker-backed ``Channel`` of the JAX
-package is an actor and waits for the runtime's port."""
+"""Actor↔actor channels of the port.
 
-from ray_tpu_torch.experimental.channel.channel import ChannelClosed
+(reference: python/ray/experimental/channel/ — shm `Channel` over mutable
+plasma objects (shared_memory_channel.py:151). Here a channel is either a
+bounded SPSC pipe whose payloads ride the shm object store while only the
+refs pass through a rendezvous actor (`Channel`), or a same-host mutable
+shared-memory buffer (`MutableShmChannel`), which the compiled-DAG plane
+and the PD KV transfer plane run on.)
+"""
+
+from ray_tpu_torch.experimental.channel.channel import (Channel, ChannelClosed,
+                                                        create_channel)
 from ray_tpu_torch.experimental.channel.mutable_shm import (
     MutableShmChannel, create_mutable_channel)
 
-__all__ = ["ChannelClosed", "MutableShmChannel", "create_mutable_channel"]
+__all__ = ["Channel", "ChannelClosed", "create_channel",
+           "MutableShmChannel", "create_mutable_channel"]

@@ -1,15 +1,20 @@
 """Mutable shared-memory SPSC channel: zero control-plane hops per message.
 
-The port's copy of ray_tpu/experimental/channel/mutable_shm.py, with the
+The port's copy of ray_tpu/experimental/channel/mutable_shm.py: the
+serializer-backed ``write``/``read`` the compiled-DAG plane runs on, and the
 raw-frame methods the PD KV transfer plane uses (``write_vectored``,
-``read_view`` + ``ack_read``). The serializer-backed ``write``/``read``
-go through the runtime's serializer and wait for the runtime's port.
+``read_view`` + ``ack_read``).
 
 One writer and one reader on the SAME host map one /dev/shm buffer; a
 seqlock-style header synchronizes them: the writer waits until the reader
 consumed the previous payload (write_seq == read_seq), writes bytes, bumps
 write_seq; the reader waits for write_seq > read_seq, reads, bumps
-read_seq.
+read_seq. No GCS, no broker actor, no object store on the hot path: a hop
+is two shared-memory writes and the payload copy.
+
+Values go through the port's serializer: a CUDA tensor is copied to the
+host on the writer's side (a blocking copy, ordered after the work queued
+on the writer's current stream) and lands on the reader's own card.
 
 Ordering note: header fields are 8-byte-aligned int64s written via
 struct.pack_into on an mmap; x86-64's total-store-order makes the
@@ -131,6 +136,33 @@ class MutableShmChannel:
         w, r, _n, _c = self._hdr()
         return w > 0 and r >= w
 
+    def write(self, value, timeout: float | None = 60.0) -> None:
+        from ray_tpu_torch._private import serialization as ser
+
+        self.write_serialized(ser.dumps(value), timeout)
+
+    def write_serialized(self, payload: bytes,
+                         timeout: float | None = 60.0) -> None:
+        """Write pre-serialized bytes (one serialization for a fan-out of
+        writes, and size-checking before committing to any channel)."""
+        if len(payload) > self.capacity:
+            raise ValueError(
+                f"payload {len(payload)}B exceeds channel capacity "
+                f"{self.capacity}B (pick buffer_bytes at create_channel)")
+
+        def writable(hdr):
+            w, r, _n, c = hdr
+            if c:
+                raise ChannelClosed("channel closed")
+            return w == r  # previous payload consumed
+
+        self._wait(writable, timeout,
+                   "channel write timed out (reader too slow)")
+        self._mm[_HDR_SIZE:_HDR_SIZE + len(payload)] = payload
+        w, _r, _n, _c = self._hdr()
+        self._set(plen=len(payload))
+        self._set(write_seq=w + 1)  # publish LAST (TSO: payload visible)
+
     def write_vectored(self, parts, timeout: float | None = 60.0) -> None:
         """Write the concatenation of ``parts`` (bytes-like) as ONE payload
         without materializing the join (PD KV pages: header + raw page
@@ -175,6 +207,21 @@ class MutableShmChannel:
         _w, _r, n, _c = self._hdr()
         return memoryview(self._mm)[_HDR_SIZE:_HDR_SIZE + n]
 
+    def read(self, timeout: float | None = 60.0):
+        """The next value. Its bytes are copied out of the segment into a
+        writable buffer before the ack, so the arrays and CPU tensors it
+        holds stay valid (and writable) after the writer reuses the
+        buffer."""
+        from ray_tpu_torch._private import serialization as ser
+
+        view = self.read_view(timeout)
+        try:
+            data = bytearray(view)
+        finally:
+            view.release()
+        self.ack_read()  # copied out: the writer may overwrite now
+        return ser.loads(data)
+
     def ack_read(self) -> None:
         """Consume the payload returned by ``read_view``: the writer may
         overwrite the buffer from here on."""
@@ -198,10 +245,13 @@ class MutableShmChannel:
         self._wait(drained, timeout,
                    "channel drain wait timed out (reader gone?)")
 
-    def close(self) -> None:
+    def close(self, drain: bool = False) -> None:
         """Mark closed; peers already attached observe ChannelClosed. The
-        NAME stays linked: the creator's GC (or an explicit unlink())
-        removes the file."""
+        NAME stays linked: a consumer that deserializes its channel argument
+        after close must still be able to attach and drain. The creator's
+        GC (or an explicit unlink()) removes the file. `drain` is accepted
+        for the broker channel's signature (a mutable buffer holds at most
+        one unread payload; nothing to drain)."""
         try:
             self._set(closed=1)
         except ValueError:
@@ -232,6 +282,10 @@ class MutableShmChannel:
             os.unlink(self.path)
         except OSError:
             pass
+
+    def __reduce__(self):
+        # deserialized copies attach to the existing file (never creators)
+        return (MutableShmChannel, (self.path, self.capacity))
 
     def __del__(self):
         mm = getattr(self, "_mm", None)

@@ -25,7 +25,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_twins import serve_of, start_sessions, stop_sessions, twin
+from torch_twins import (private_channel_dirs, serve_of, start_sessions,
+                         stop_sessions, twin)
 
 TINY = dict(vocab_size=128, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
             d_ff=128, max_seq_len=128)
@@ -115,11 +116,7 @@ def private_channels(monkeypatch, tmp_path):
     """Each package's channels in a directory of this test's own (readers
     open a channel by the path its ticket carries), so a leak check sees
     only this test's segments, not those of tests running beside it."""
-    for pkg in ("ray_tpu", "ray_tpu_torch"):
-        d = tmp_path / pkg
-        d.mkdir()
-        monkeypatch.setattr(importlib.import_module(
-            f"{pkg}.experimental.channel.mutable_shm"), "_DIR", str(d))
+    private_channel_dirs(monkeypatch, tmp_path)
 
 
 def _sides(tiny_model):

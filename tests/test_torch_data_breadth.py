@@ -10,6 +10,7 @@ Twins of tests/test_data_breadth.py, run on both packages and compared
 
 from __future__ import annotations
 
+import gc
 import glob
 import os
 
@@ -321,7 +322,13 @@ def test_iter_torch_batches_writable(pkgs):
                 total += int(b["id"].sum())
         return total
 
-    _same(pkgs, scn, sum(range(1, 101)))
+    # warning filters are process-wide and catch_warnings is not
+    # thread-safe: the sides run one after the other, and garbage earlier
+    # tests left (a dead session's sockets) is collected first, so no
+    # finalizer's ResourceWarning becomes an error inside the block
+    gc.collect()
+    same(pkgs, scn, sum(range(1, 101)), serve_cleanup=False,
+         sequential=True)
 
 
 # ------------------------------------------- review-found edge cases (r4)

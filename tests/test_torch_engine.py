@@ -225,6 +225,9 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.train.zero\n"
         "import ray_tpu_torch.llm.kv_transfer, ray_tpu_torch.llm.pd\n"
         "import ray_tpu_torch.experimental.channel.mutable_shm\n"
+        "import ray_tpu_torch.experimental.channel\n"
+        "import ray_tpu_torch.experimental.device_objects\n"
+        "import ray_tpu_torch.dag, ray_tpu_torch.dag.channel_execution\n"
         "import ray_tpu_torch.util.metrics, ray_tpu_torch._private.constants\n"
         "import ray_tpu_torch._private.api, ray_tpu_torch._private.gcs\n"
         "import ray_tpu_torch._private.node, ray_tpu_torch._private.worker\n"

@@ -34,6 +34,8 @@ ALLOWED = {
                      "optimizer_state_bytes", "param_leaves")},
     },
     "tune": {},
+    "dag": {},
+    "experimental.channel": {},
     "util.collective": {},
     "serve": {},
     "data": {},

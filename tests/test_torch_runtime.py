@@ -932,7 +932,6 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
 
     w = worker._global_worker or rt._private.api._get_worker()
     cases = {
-        "item 13": lambda: rt.method(tensor_transport="device"),
         "item 18": lambda: f.options(runtime_env={"pip": ["x"]}).remote(),
         "item 22": lambda: rt.cpp_function("add"),
     }
@@ -958,26 +957,48 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
     assert not w._pull_remote("ff" * 10, {"locations": [["host-0", "a"]]})
 
 
+def test_method_tensor_transport_device_stamps_the_attribute(pkgs):
+    """`method(tensor_transport="device")` (ROADMAP.md Queue 1 item 13,
+    ported) stamps the attribute the worker's result path reads; any other
+    transport, the JAX package's alias "tpu" too, is a ValueError naming
+    "device"."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._private.constants import TENSOR_TRANSPORT_ATTR
+
+    def make(self):
+        return 1
+
+    assert rt.method(tensor_transport="device")(make) is make
+    assert getattr(make, TENSOR_TRANSPORT_ATTR) == "device"
+    for bad in ("tpu", "nccl"):
+        with pytest.raises(ValueError, match="'device'"):
+            rt.method(tensor_transport=bad)(lambda self: 1)
+
+
 def test_compiled_dag_exec_loop_is_refused_in_the_actor(pkgs):
     """The compiled-DAG channel loop (an actor task under the reserved
-    method name) fails the task, naming ROADMAP.md Queue 1 item 16; the
-    actor goes on serving."""
+    method name, ROADMAP.md Queue 1 item 16) is no longer refused: it runs
+    in the actor until teardown, and the actor's later calls still work."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch._private.constants import EXEC_LOOP_METHOD
-    from ray_tpu_torch.actor import ActorMethod
+    from ray_tpu_torch.dag import InputNode
 
     @rt.remote
     class Stage:
+        def work(self, x):
+            return x + 1
+
         def ok(self):
             return "ok"
 
     s = Stage.remote()
     try:
-        with pytest.raises(rt.exceptions.RayTaskError) as ei:
-            rt.get(ActorMethod(s._actor_id, EXEC_LOOP_METHOD).remote(),
-                   timeout=60)
-        assert isinstance(ei.value.cause, NotImplementedError)
-        assert "ROADMAP.md Queue 1 item 16" in str(ei.value.cause)
+        with InputNode() as inp:
+            dag = s.work.bind(inp)
+        compiled = dag.experimental_compile()
+        assert compiled.uses_channels, compiled.fallback_reason
+        assert [compiled.execute(i).result(timeout=60)
+                for i in range(3)] == [1, 2, 3]
+        compiled.teardown()
         assert rt.get(s.ok.remote(), timeout=60) == "ok"
     finally:
         rt.kill(s)

@@ -36,6 +36,18 @@ def stop_sessions(pkgs) -> None:
         rt.shutdown()
 
 
+def shutdown_runtimes(pkgs) -> None:
+    """Shut both runtimes down, then collect the garbage their sessions
+    left: a GCS's accepted socket of a killed worker is closed only when it
+    is collected, and its ResourceWarning must surface here, not inside a
+    later test that turns warnings into errors."""
+    import gc
+
+    for rt in pkgs:
+        rt.shutdown()
+    gc.collect()
+
+
 def sub(rt, name: str):
     """The submodule `name` of package `rt` (e.g. "serve", "_private.api")."""
     return importlib.import_module(f"{rt.__name__}.{name}")
@@ -207,3 +219,25 @@ def plain(x):
     if isinstance(x, (np.ndarray, np.generic)):
         return x.tolist()
     return x
+
+
+def private_channel_dirs(monkeypatch, tmp_path) -> None:
+    """Each package's shm channels in a directory of the calling test's own
+    (readers attach by the path a channel carries), so a leak check sees
+    only that test's segments, not those of tests running beside it."""
+    for pkg in ("ray_tpu", "ray_tpu_torch"):
+        d = tmp_path / f"chan_{pkg}"
+        d.mkdir()
+        monkeypatch.setattr(importlib.import_module(
+            f"{pkg}.experimental.channel.mutable_shm"), "_DIR", str(d))
+
+
+def channel_files(rt) -> set:
+    """The channel segments of package `rt` in its (patched) channel
+    directory."""
+    import glob
+    import os
+
+    shm = sub(rt, "experimental.channel.mutable_shm")
+    prefix = sub(rt, "_private.constants").SHM_CHANNEL_PREFIX
+    return set(glob.glob(os.path.join(shm._DIR, prefix + "*")))
