@@ -355,6 +355,41 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       payload's GB/s.
    After ``shutdown()`` no segment of the session is left.
 
+19. Multi-host (a new runtime session, after phase 18, before phase 11):
+   ``RAY_TPU_TORCH_WORKER_PLATFORM=cuda`` and a 4 GiB store, a head with
+   ``num_gpus=1`` and follower hosts started by ``Cluster.add_host``: real
+   node-agent processes with their own shm namespaces, joined over TCP.
+   On one machine every host's GPU is the one H100: the single-card
+   stand-in for separate machines, as phase 17c's two half-GPU workers
+   stand in for two cards. host-1 (``num_gpus=1``) keeps the file store
+   and serves it through the C++ object server; host-2 keeps the arena
+   and the Python server.
+   a. A ``num_gpus=1`` task pinned to host-1 builds Llama-3-8B (phase 10's
+      weights, from the seed), prefills 18a's prompt and serves phase 4's
+      prompts through an ``LLMEngine`` with phase 14's options; the
+      driver's ``get`` pulls the KV and logits (CUDA tensors) from host-1's
+      store into host-0's and onto its card. The token and the sha256 of
+      the KV and logits equal in-process prefill's, the ids in-process
+      serving's; flash = 32 x (1 + prefills) and ragged = 32 x decode
+      steps in host-1's worker, none in the driver; the result's
+      locations are host-1 before the get and both hosts after. Prints
+      the pull's bytes, ms and GB/s, split into the transfer and the
+      write into the driver's store.
+   b. A 256 MiB bf16 CUDA tensor put on host-1 (its object address
+      ``native:...``) and one put on host-2, each pulled by the driver, two
+      rounds alternating: bytes sha256-equal to the maker's; prints each
+      plane's pull GB/s and its transfer / store-write split.
+   c. host-2 is removed; a ``num_gpus=1, max_retries=1`` prefill with a
+      soft affinity to host-1 is running there when ``remove_host``
+      SIGKILLs host-1 (its agent and workers). The node-leave event names
+      host-1's lost GPU, ``list_nodes`` shows it dead, the retry runs on
+      host-0's GPU with the in-process token, and ``get`` of a put object
+      only host-1 held raises ObjectLostError. Prints the time to
+      detection and to the retried result.
+   After ``shutdown()`` no segment of the session (host-1's namespace
+   included) is left, and the card's free memory is back within 1 GiB of
+   its value before the phase.
+
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5178,6 +5213,510 @@ def dag_phase(torch, rt, card: str, expected: dict, fps10: dict,
     return out
 
 
+# ----------------------------------------------------------------- phase 19
+
+HOST_ENV = {
+    # the head's and the followers' workers: whole-GPU grants reach the
+    # card through CUDA_VISIBLE_DEVICES; CPU workers are not hidden from it
+    "RAY_TPU_TORCH_WORKER_PLATFORM": "cuda",
+    # 19a's 128 MiB of KV and 19b's 256 MiB tensors land in each host's
+    # store (the agents inherit the driver's env)
+    "RAY_TPU_TORCH_STORE_CAPACITY": str(4 << 30)}
+# host-1 keeps its objects in the file store and serves them through the
+# C++ object server; host-2 keeps the default arena and the Python server
+NATIVE_ENV = {"RAY_TPU_TORCH_STORE_BACKEND": "file",
+              "RAY_TPU_TORCH_OBJECT_SERVER_BACKEND": "native"}
+PULL_BYTES = 256 << 20           # 19b's bf16 tensor
+PULL_ROUNDS = 2                  # 19b: native, python, native, python
+HOST_MEM_SLACK = 1 << 30         # 19c: the card's free memory after shutdown
+LOST_ELEMS = 1 << 20             # 19c: an f32 object only host-1 holds
+HOST_WAIT_S = 900.0
+
+
+def host_id() -> str:
+    return os.environ.get("RAY_TPU_TORCH_HOST_ID", "host-0")
+
+
+def follower_serve(prepare=None):
+    """19a's task body (pickled by value into a num_gpus=1 worker on
+    host-1): Llama-3-8B from the seed (phase 10's weights), 18a's prefill,
+    then an LLMEngine with phase 14's options serving phase 4's prompts
+    greedily, each alone (as ``dag_expected`` does in process). Returns the
+    KV and the logits as CUDA tensors, with the ids, the weights'
+    fingerprints, the engine's counters and this worker's launch counts."""
+
+    def run():
+        if prepare is not None:
+            prepare()
+        import torch
+
+        from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams
+        from ray_tpu_torch.models import decoding, llama, transformer
+
+        kernels = loop_kernels()
+        zero(kernels)
+        cfg = llama.llama_config("8b")
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            torch.device("cuda"), dtype=cfg.dtype)
+        fps = weight_fingerprints(torch, params)
+        tokens = torch.tensor([device_prompt(cfg.vocab_size)], device="cuda")
+        with torch.no_grad():
+            logits, kv = decoding.prefill(params, tokens, DEV_PROMPT, cfg)
+        torch.cuda.synchronize()
+        built = LLMConfig(engine_kwargs=http_engine_kwargs())
+        built.build_model = lambda device=None: (cfg, params)
+        eng = LLMEngine.from_config(built)
+        try:
+            sp = SamplingParams(max_tokens=HTTP_MAX_TOKENS, temperature=0.0)
+            ids = [eng.generate(p, sp) for p in phase4_prompts(cfg.vocab_size)]
+            st = eng.stats()
+        finally:
+            eng.shutdown()
+        torch.cuda.synchronize()
+        out = {"k": kv["k"], "v": kv["v"], "logits": logits, "ids": ids,
+               "hashes": {n: tensor_sha(torch, t) for n, t in
+                          (("k", kv["k"]), ("v", kv["v"]),
+                           ("logits", logits))},
+               "fingerprints": fps, "launches": counts(kernels),
+               "prefills": st["prefills"],
+               "decode_steps": st["decode_steps"],
+               "n_layers": cfg.n_layers, "host": host_id()}
+        del built, eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    return run
+
+
+def tensor_on_host(nbytes: int, seed: int, prepare=None):
+    """19b's task body: a seeded bf16 CUDA tensor of `nbytes` put into this
+    host's store; returns its ref and the sha256 of its bytes."""
+
+    def run():
+        if prepare is not None:
+            prepare()
+        import torch
+
+        import ray_tpu_torch
+
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        t = torch.randn(nbytes // 2, generator=g, device="cuda",
+                        dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        return {"ref": ray_tpu_torch.put(t), "sha": tensor_sha(torch, t),
+                "host": host_id()}
+
+    return run
+
+
+def lost_object():
+    """19c: an object only this host's store holds (never pulled)."""
+
+    def run():
+        import numpy as np
+
+        import ray_tpu_torch
+
+        return ray_tpu_torch.put(np.ones(LOST_ELEMS, dtype=np.float32))
+
+    return run
+
+
+def retried_prefill(flag: str, prepare=None):
+    """19c's task body: Llama-3-8B from the seed and 18a's prefill. On a
+    follower host the attempt marks `flag` after its first prefill and
+    keeps prefilling until its host is lost; the retry on the head returns
+    the greedy token with its own launch counts."""
+
+    def run():
+        if prepare is not None:
+            prepare()
+        import time
+
+        import torch
+
+        from ray_tpu_torch.models import decoding, llama, transformer
+
+        kernels = loop_kernels()
+        zero(kernels)
+        cfg = llama.llama_config("8b")
+        params = transformer.init(
+            torch.Generator(device="cuda").manual_seed(SEED), cfg,
+            torch.device("cuda"), dtype=cfg.dtype)
+        tokens = torch.tensor([device_prompt(cfg.vocab_size)], device="cuda")
+        with torch.no_grad():
+            logits, _kv = decoding.prefill(params, tokens, DEV_PROMPT, cfg)
+            torch.cuda.synchronize()
+            if host_id() != "host-0":
+                open(flag, "w").close()
+                deadline = time.monotonic() + HOST_WAIT_S
+                while time.monotonic() < deadline:
+                    logits, _kv = decoding.prefill(params, tokens,
+                                                   DEV_PROMPT, cfg)
+                    torch.cuda.synchronize()
+        return {"host": host_id(), "token": int(torch.argmax(logits)),
+                "launches": counts(kernels), "n_layers": cfg.n_layers}
+
+    return run
+
+
+class PullTimer:
+    """Times the driver's cross-host pulls: wraps its CoreWorker's
+    ``_pull_remote`` (the get path calls it through the instance) and its
+    store's ``put_parts`` (where the fetcher lands the bytes), and records
+    each pull's bytes, seconds, the part spent writing the store, and the
+    addresses it was offered."""
+
+    def __init__(self, worker):
+        self.worker, self.pulls, self.writes = worker, [], {}
+        orig, put = worker._pull_remote, worker.store.put_parts
+
+        def timed(oid, reply):
+            t0 = time.perf_counter()
+            ok = orig(oid, reply)
+            self.pulls.append({
+                "oid": oid, "ok": ok, "bytes": reply.get("size", 0),
+                "s": time.perf_counter() - t0,
+                "from": [list(loc) for loc in reply.get("locations") or ()]})
+            return ok
+
+        def timed_put(oid, parts, total):
+            t0 = time.perf_counter()
+            tier = put(oid, parts, total)
+            self.writes[oid] = time.perf_counter() - t0
+            return tier
+
+        worker._pull_remote = timed
+        worker.store.put_parts = timed_put
+
+    def close(self) -> None:
+        self.worker.__dict__.pop("_pull_remote", None)
+        self.worker.store.__dict__.pop("put_parts", None)
+
+    def of(self, oid: str) -> dict:
+        mine = [p for p in self.pulls if p["oid"] == oid]
+        if len(mine) != 1 or not mine[0]["ok"]:
+            fail(f"19: expected one successful pull of {oid}, got {mine}")
+        p = dict(mine[0])
+        p["ms"] = 1e3 * p["s"]
+        p["GBps"] = p["bytes"] / p["s"] / 1e9
+        # the rest of the pull is the transfer: connect, request, receive
+        p["store_write_ms"] = 1e3 * self.writes.get(oid, float("nan"))
+        p["transfer_ms"] = p["ms"] - p["store_write_ms"]
+        return p
+
+
+def object_hosts(rt, oid: str) -> list:
+    gcs = rt._private.api._node.gcs
+    with gcs.lock:
+        return sorted(gcs.objects.get(oid, {}).get("hosts", ()))
+
+
+def wait_hosts(rt, oid: str, want: list, timeout_s: float = 10.0) -> list:
+    deadline = time.monotonic() + timeout_s
+    got = object_hosts(rt, oid)
+    while got != want and time.monotonic() < deadline:
+        time.sleep(0.05)
+        got = object_hosts(rt, oid)
+    return got
+
+
+def serve_from_follower_19a(torch, rt, card: str, expected: dict,
+                            fps10: dict, prepare=None) -> dict:
+    """19a: Llama-3-8B prefilled and served in host-1's GPU worker; the
+    driver's get pulls the result from host-1's store into host-0's, then
+    onto its card."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy)
+
+    kernels = loop_kernels()
+    task = rt.remote(num_gpus=1)(follower_serve(prepare))
+    zero(kernels)  # the main path starts here
+    t0 = time.perf_counter()
+    ref = task.options(scheduling_strategy=NodeAffinitySchedulingStrategy(
+        node_id="host-1")).remote()
+    ready, _ = rt.wait([ref], num_returns=1, timeout=HOST_WAIT_S)
+    out = {"task_s": time.perf_counter() - t0}
+    if not ready:
+        fail("19a: the follower's task did not finish")
+    out["hosts_before_get"] = object_hosts(rt, ref.hex())
+    timer = PullTimer(rt._private.api._get_worker())
+    try:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        res = rt.get(ref, timeout=600)
+        torch.cuda.synchronize()
+        out["get_ms"] = 1e3 * (time.perf_counter() - t1)
+    finally:
+        timer.close()
+    out["driver_launches"] = counts(kernels)
+    out["hosts_after_get"] = wait_hosts(rt, ref.hex(), ["host-0", "host-1"])
+    out["pull"] = timer.of(ref.hex())
+    got = {n: {"device": res[n].device.type, "sha": tensor_sha(torch, res[n])}
+           for n in ("k", "v", "logits")}
+    token = int(torch.argmax(res["logits"]))
+    out.update({"host": res["host"], "token": token, "ids": res["ids"],
+                "launches": res["launches"], "prefills": res["prefills"],
+                "decode_steps": res["decode_steps"],
+                "n_layers": res["n_layers"],
+                "tensors": {n: g["device"] for n, g in got.items()}})
+    del res["k"], res["v"], res["logits"]
+    if res["fingerprints"] != fps10:
+        fail(f"19a: host-1's weights differ from phase 10's: "
+             f"{res['fingerprints']} vs {fps10}")
+    if res["host"] != "host-1":
+        fail(f"19a: the task ran on {res['host']}, not host-1")
+    if token != expected["token"]:
+        fail(f"19a: greedy token {token} != in-process prefill's "
+             f"{expected['token']}")
+    for n, g in got.items():
+        if g["device"] != "cuda":
+            fail(f"19a: the driver's {n} is on {g['device']}")
+        if g["sha"] != expected["hashes"][n] or \
+                res["hashes"][n] != expected["hashes"][n]:
+            fail(f"19a: {n} differs from in-process prefill's bytes "
+                 f"(host-1 {res['hashes'][n] == expected['hashes'][n]}, "
+                 f"the driver {g['sha'] == expected['hashes'][n]})")
+    if res["ids"] != expected["ids"]:
+        bad = [i for i, (a, b) in enumerate(zip(res["ids"], expected["ids"]))
+               if a != b]
+        fail(f"19a: the follower's engine ids differ from in-process "
+             f"serving at prompts {bad}")
+    L = res["n_layers"]
+    want = {"flash_attention_fwd_bf16": L * (1 + res["prefills"]),
+            "ragged_paged_attention_bf16": L * res["decode_steps"]}
+    for sym, n in res["launches"].items():
+        if n != want.get(sym, 0):
+            fail(f"19a: {sym} launched {n} times in host-1's worker, "
+                 f"expected {want.get(sym, 0)}")
+    if any(out["driver_launches"].values()):
+        fail(f"19a: launches in the driver: {out['driver_launches']}")
+    if out["hosts_before_get"] != ["host-1"] or \
+            out["hosts_after_get"] != ["host-0", "host-1"]:
+        fail(f"19a: the result's locations were {out['hosts_before_get']} "
+             f"before the get and {out['hosts_after_get']} after")
+    p = out["pull"]
+    print(f"19a llama-3-8b served from host-1 on {card}: task "
+          f"{out['task_s']:.3f} s, token-exact, {len(res['ids'])} prompts "
+          f"token-exact; pull of {p['bytes']} B from "
+          f"{p['from'][0][1] if p['from'] else '?'} in {p['ms']:.3f} ms "
+          f"({p['GBps']:.3f} GB/s: transfer {p['transfer_ms']:.3f}, store "
+          f"write {p['store_write_ms']:.3f}), get {out['get_ms']:.3f} ms",
+          flush=True)
+    return out
+
+
+def both_planes_19b(torch, rt, card: str, prepare=None) -> dict:
+    """19b: a 256 MiB bf16 CUDA tensor put on host-1 (file store, C++
+    server) and on host-2 (arena, Python server), each pulled by the
+    driver, alternating; bytes sha256-equal on both ends."""
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy)
+
+    gcs = rt._private.api._node.gcs
+    with gcs.lock:
+        addrs = {h: info["object_addr"] for h, info in gcs.hosts.items()}
+    if not str(addrs.get("host-1")).startswith("native:"):
+        fail(f"19b: host-1's object address {addrs.get('host-1')!r} is not "
+             f"the native server's")
+    if str(addrs.get("host-2")).startswith("native:"):
+        fail(f"19b: host-2's object address {addrs.get('host-2')!r} is the "
+             f"native server's; its Python server was expected")
+    out = {"addresses": addrs, "native": [], "python": []}
+    for r in range(PULL_ROUNDS):
+        for plane, host in (("native", "host-1"), ("python", "host-2")):
+            task = rt.remote(num_gpus=1)(
+                tensor_on_host(PULL_BYTES, SEED + 19 + r, prepare))
+            made = rt.get(task.options(
+                scheduling_strategy=NodeAffinitySchedulingStrategy(
+                    node_id=host)).remote(), timeout=HOST_WAIT_S)
+            inner = made["ref"]
+            before = object_hosts(rt, inner.hex())
+            timer = PullTimer(rt._private.api._get_worker())
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                t = rt.get(inner, timeout=600)
+                torch.cuda.synchronize()
+                get_ms = 1e3 * (time.perf_counter() - t0)
+            finally:
+                timer.close()
+            pull = timer.of(inner.hex())
+            row = {"bytes": pull["bytes"], "ms": pull["ms"],
+                   "GBps": pull["GBps"], "get_ms": get_ms,
+                   "transfer_ms": pull["transfer_ms"],
+                   "store_write_ms": pull["store_write_ms"],
+                   "address": pull["from"][0][1] if pull["from"] else None,
+                   "device": t.device.type, "made_on": made["host"],
+                   "hosts_before": before,
+                   "sha_equal": tensor_sha(torch, t) == made["sha"]}
+            out[plane].append(row)
+            del t, made, inner
+            if row["made_on"] != host or before != [host]:
+                fail(f"19b: the {plane} tensor was made on {row['made_on']} "
+                     f"and located on {before}, not on {host}")
+            if not row["sha_equal"]:
+                fail(f"19b: the {plane} pull's bytes differ from {host}'s")
+            if row["device"] != "cuda":
+                fail(f"19b: the {plane} pull landed on {row['device']}")
+            if (plane == "native") != str(row["address"]).startswith(
+                    "native:"):
+                fail(f"19b: the {plane} pull read {row['address']}")
+    for plane in ("native", "python"):
+        rows = out[plane]
+        print(f"19b {plane} plane on {card}: pull of {PULL_BYTES} B in "
+              + ", ".join(f"{r['ms']:.3f}" for r in rows) + " ms ("
+              + ", ".join(f"{r['GBps']:.3f}" for r in rows)
+              + " GB/s; transfer "
+              + ", ".join(f"{r['transfer_ms']:.3f}" for r in rows)
+              + " ms, store write "
+              + ", ".join(f"{r['store_write_ms']:.3f}" for r in rows)
+              + " ms); get onto the card "
+              + ", ".join(f"{r['get_ms']:.3f}" for r in rows) + " ms",
+              flush=True)
+    return out
+
+
+def lose_host_19c(torch, rt, card: str, cluster, expected: dict,
+                  prepare=None) -> dict:
+    """19c: a prefill on host-1 whose host is lost mid-task is retried on
+    host-0's GPU; host-1's node is dead, its node-leave event names the
+    lost GPU, and a put object only host-1 held is lost."""
+    from ray_tpu_torch._private.constants import EVENT_NODE_LEAVE
+    from ray_tpu_torch.exceptions import ObjectLostError
+    from ray_tpu_torch.util import state
+    from ray_tpu_torch.util.scheduling_strategies import (
+        NodeAffinitySchedulingStrategy)
+
+    on1 = NodeAffinitySchedulingStrategy(node_id="host-1")
+    lost = rt.get(rt.remote(lost_object()).options(
+        scheduling_strategy=on1).remote(), timeout=120)
+    out = {"lost_hosts": object_hosts(rt, lost.hex())}
+    flag = os.path.join(rt._private.api._node.session_dir, "prefill_started")
+    task = rt.remote(num_gpus=1, max_retries=1)(
+        retried_prefill(flag, prepare))
+    ref = task.options(scheduling_strategy=NodeAffinitySchedulingStrategy(
+        node_id="host-1", soft=True)).remote()
+    deadline = time.monotonic() + HOST_WAIT_S
+    while not os.path.exists(flag) and time.monotonic() < deadline:
+        time.sleep(0.05)
+    if not os.path.exists(flag):
+        fail("19c: the prefill never started on host-1")
+    t_kill = time.perf_counter()
+    cluster.remove_host("host-1")
+    while time.perf_counter() - t_kill < 60:
+        row = next(n for n in rt.nodes() if n["node_id"] == "host-1")
+        if not row["alive"]:
+            break
+        time.sleep(0.01)
+    out["detect_s"] = time.perf_counter() - t_kill
+    res = rt.get(ref, timeout=HOST_WAIT_S)
+    out["retried_result_s"] = time.perf_counter() - t_kill
+    out.update({"host": res["host"], "token": res["token"],
+                "launches": res["launches"]})
+    left = [e for e in state.list_events(etype=EVENT_NODE_LEAVE)
+            if e.get("node") == "host-1"]
+    out["node_leave"] = {k: left[0].get(k) for k in
+                         ("message", "reason", "lost_resources",
+                          "n_workers_lost")} if left else None
+    out["host1_alive"] = row["alive"]
+    try:
+        rt.get(lost, timeout=60)
+        out["lost_get"] = None
+    except ObjectLostError as e:
+        out["lost_get"] = type(e).__name__
+    except Exception as e:  # noqa: BLE001 — the wrong class fails below
+        out["lost_get"] = f"{type(e).__name__}: {e}"
+    if out["lost_hosts"] != ["host-1"]:
+        fail(f"19c: the put object lived on {out['lost_hosts']}")
+    if not left or left[0].get("lost_resources", {}).get("GPU") != 1.0:
+        fail(f"19c: no node-leave event names host-1's GPU: {left}")
+    if out["host1_alive"]:
+        fail("19c: host-1 is alive in list_nodes after its loss")
+    if res["host"] != "host-0":
+        fail(f"19c: the retry ran on {res['host']}, not host-0")
+    if res["token"] != expected["token"]:
+        fail(f"19c: the retried prefill's token {res['token']} != "
+             f"{expected['token']}")
+    want = {"flash_attention_fwd_bf16": res["n_layers"]}
+    for sym, n in res["launches"].items():
+        if n != want.get(sym, 0):
+            fail(f"19c: {sym} launched {n} times in the retry, expected "
+                 f"{want.get(sym, 0)}")
+    if out["lost_get"] != "ObjectLostError":
+        fail(f"19c: get of host-1's only copy gave {out['lost_get']}")
+    print(f"19c host loss on {card}: host-1 dead {out['detect_s']:.3f} s "
+          f"after the kill, the retried prefill's token on host-0 "
+          f"{out['retried_result_s']:.3f} s after it; the lost copy "
+          f"raised {out['lost_get']}", flush=True)
+    return out
+
+
+def multihost_phase(torch, rt, card: str, expected: dict, fps10: dict,
+                    prepare=None) -> dict:
+    """Phase 19 in a fresh session with HOST_ENV: a head with one GPU, two
+    follower hosts (node agents) each granted the card; 19a, 19b, 19c.
+    After shutdown no segment of the session (host-1's namespace included)
+    is left and the card's free memory is back."""
+    import glob
+
+    from ray_tpu_torch._private.ray_config import RayConfig
+    from ray_tpu_torch.cluster_utils import Cluster
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in HOST_ENV}
+    os.environ.update(HOST_ENV)
+    RayConfig.reset()
+    out = {}
+    try:
+        cluster = Cluster(head_node_args=dict(num_cpus=8, num_gpus=1))
+        sid = out["session"] = rt._private.api._node.session_id
+        t0 = time.perf_counter()
+        cluster.add_host(host_id="host-1", num_cpus=2, num_gpus=1,
+                         env=NATIVE_ENV)
+        out["add_host_s"] = time.perf_counter() - t0
+        out["19a"] = serve_from_follower_19a(torch, rt, card, expected,
+                                             fps10, prepare)
+        cluster.add_host(host_id="host-2", num_cpus=2, num_gpus=1)
+        out["19b"] = both_planes_19b(torch, rt, card, prepare)
+        cluster.remove_host("host-2")  # 19c's retry must land on host-0
+        out["19c"] = lose_host_19c(torch, rt, card, cluster, expected,
+                                   prepare)
+    finally:
+        rt.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig.reset()
+    left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+    if left:
+        fail(f"19: shm segments of the session left: {sorted(left)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    free = torch.cuda.mem_get_info()[0]
+    while free0 - free > HOST_MEM_SLACK and time.monotonic() < deadline:
+        time.sleep(0.5)
+        free = torch.cuda.mem_get_info()[0]
+    out["free_before"], out["free_after"] = free0, free
+    if free0 - free > HOST_MEM_SLACK:
+        fail(f"19: the card has {(free0 - free) / 2**30:.3f} GiB less free "
+             f"memory after the phase")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"multi-host on {card}: phase 19 took {out['phase_s']:.1f} s",
+          flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -5592,6 +6131,7 @@ def main() -> int:
                 "batch_processor": {}, "train_fit": {}, "train_resume": {},
                 "train_zero_rank0": {}, "tune_trial0": {}, "tune_trial1": {},
                 "device_producer": {}, "dag_engine": {},
+                "follower_engine": {}, "follower_retry": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -5719,6 +6259,12 @@ def main() -> int:
         launches["device_producer"] = dagged["18a"]["launches"]
         launches["dag_engine"] = dagged["18b"]["launches"]
         print(json.dumps({"card": card, "dag": dagged}), flush=True)
+        # phase 19: multi-host, two follower hosts sharing the card
+        hosted = multihost_phase(torch, ray_tpu_torch, card, expected18,
+                                 fps10)
+        launches["follower_engine"] = hosted["19a"]["launches"]
+        launches["follower_retry"] = hosted["19c"]["launches"]
+        print(json.dumps({"card": card, "multihost": hosted}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

@@ -335,10 +335,10 @@ class GcsServer:
             DEFAULT_NODE: _VNode(DEFAULT_NODE, total_resources, node_labels)
         }
         self.local_node_id = DEFAULT_NODE
-        # the one host's object-plane address (reference:
-        # ownership_object_directory.h locations). "host-0" is the head; no
-        # follower host registers (ROADMAP.md Queue 1 item 17).
-        self.head_object_addr: str | None = None
+        # cross-host state (reference: gcs_node_manager.h:47 node registry +
+        # ownership_object_directory.h locations). "host-0" is the head.
+        self.hosts: dict[str, dict] = {HEAD_HOST: {"object_addr": None, "conn": None}}
+        self.node_hosts: dict[str, str] = {}  # node_id → host_id (default head)
 
         self.objects: dict[str, dict] = {}
         self.object_waiters: dict[str, list[tuple[MsgConnection, int]]] = {}
@@ -473,8 +473,8 @@ class GcsServer:
         # metrics stack — per-node agents scraped into Prometheus,
         # dashboard/modules/metrics/metrics_head.py; here the GCS keeps a
         # bounded in-memory window so the UI graphs history with no
-        # external TSDB): the head's node samples and the cluster samples,
-        # both appended on each health-loop tick
+        # external TSDB): per-node samples appended on each resource_view
+        # delta, cluster samples on each health-loop tick
         self.node_history: dict[str, collections.deque] = {}
         self.cluster_history: collections.deque = collections.deque(
             maxlen=720)
@@ -565,12 +565,12 @@ class GcsServer:
             self._create_actor(dict(spec), _persist=False)
 
     def _health_loop(self):
-        """Periodic housekeeping: retained histories and parked relay
-        waiters. Same-host worker death is observed through connection
-        close; follower hosts, which the reference pings here
-        (gcs_health_check_manager.h:45), are not ported (ROADMAP.md Queue 1
-        item 17)."""
+        """Actively ping follower-host agents; hosts missing too many pongs
+        are declared dead (reference: gcs_health_check_manager.h:45, config
+        thresholds in ray_config_def.h:877). Same-host worker death is
+        already observed through connection close."""
         period = RayConfig.get("health_check_period_s")
+        thresh = RayConfig.get("health_check_failure_threshold")
         while not self.stopped:
             time.sleep(period)
             now = time.monotonic()
@@ -589,10 +589,31 @@ class GcsServer:
                                          "(wedged in native code?)"})
                 except ConnectionClosed:
                     pass
+            dead_hosts = []
+            with self.lock:
+                targets = [(hid, info) for hid, info in self.hosts.items()
+                           if hid != HEAD_HOST and info.get("conn") is not None]
+                for hid, info in targets:
+                    last = info.get("last_pong")
+                    if last is None:
+                        info["last_pong"] = now  # first check cycle
+                    elif now - last > period * thresh:
+                        dead_hosts.append(hid)
+            for hid in dead_hosts:
+                logger.warning("host %s failed health checks; removing", hid)
+                self._remove_host(hid)
+            for hid, info in targets:
+                if hid in dead_hosts:
+                    continue
+                try:
+                    info["conn"].send({"type": "ping"})
+                except (ConnectionClosed, Exception):
+                    self._remove_host(hid)
 
     def _sample_histories(self):
         """One retained-history tick: cluster-level gauges plus the head
-        host's own resource view."""
+        host's own resource view (followers report theirs via ray_syncer
+        deltas; without this the head node would have no series at all)."""
         from ray_tpu_torch._private.memory_monitor import host_memory_usage
 
         try:
@@ -623,7 +644,8 @@ class GcsServer:
             })
             hist = self.node_history.setdefault(
                 HEAD_HOST, collections.deque(maxlen=720))
-            # the head's PER-NODE series counts head-local workers only
+            # the head's PER-NODE series counts head-local workers only —
+            # followers report their own via resource_view deltas
             hist.append({"ts": ts, "mem_usage": round(mem, 4),
                          "load1": round(load1, 2),
                          "num_worker_procs": head_workers})
@@ -644,7 +666,8 @@ class GcsServer:
             target=self._accept_loop, args=(self._listener,), daemon=True,
             name="gcs-accept")
         self._accept_thread.start()
-        # always also listen on TCP so remote drivers can join (reference capability: gRPC control plane, rpc/grpc_server.h).
+        # always also listen on TCP so follower hosts / remote drivers can
+        # join (reference capability: gRPC control plane, rpc/grpc_server.h).
         # Loopback by default — the protocol executes pickled code, so only
         # bind externally (RAY_TPU_TORCH_BIND_HOST=0.0.0.0) on trusted networks.
         import os as _os
@@ -658,7 +681,8 @@ class GcsServer:
             name="gcs-accept-tcp")
         self._tcp_accept_thread.start()
         # OOM defense for the head host (reference: memory_monitor.h:52 +
-        # worker_killing_policy_group_by_owner.h:87)
+        # worker_killing_policy_group_by_owner.h:87); node agents run their
+        # own for follower hosts
         self._mem_monitor = None
         refresh_ms = RayConfig.get("memory_monitor_refresh_ms")
         if refresh_ms > 0:
@@ -749,6 +773,7 @@ class GcsServer:
         with self.lock:
             self.stopped = True
             conns = [w.conn for w in self.workers.values() if not w.dead]
+            conns += [h["conn"] for h in self.hosts.values() if h.get("conn")]
         if self.storage is not None:
             self.storage.close()
         for listener in (self._listener, getattr(self, "_tcp_listener", None)):
@@ -890,6 +915,10 @@ class GcsServer:
         except ConnectionClosed:
             if wid is not None:
                 self._on_worker_death(wid)
+            host_id = next((h for h, info in self.hosts.items()
+                            if info.get("conn") is conn), None)
+            if host_id is not None:
+                self._remove_host(host_id)
             # drop pubsub subscriber state owned by this connection — a
             # crashed subscriber must not leave queues accumulating forever
             with self.lock:
@@ -963,13 +992,49 @@ class GcsServer:
             conn.send({"rid": msg["rid"], "session_id": self.session_id})
             return wid
         if t == "register_host":
-            # a follower host's agent (node_agent.py) is not ported
-            from ray_tpu_torch.exceptions import _not_ported
-
-            conn.send({"rid": msg["rid"], "ok": False,
-                       "error": str(_not_ported(
-                           "a multi-host follower (register_host)",
-                           "item 17"))})
+            with self.lock:
+                host_id = msg["host_id"]
+                node_id = msg.get("node_id") or host_id
+                self.hosts[host_id] = {
+                    "object_addr": msg.get("object_addr"), "conn": conn}
+                self.node_hosts[node_id] = host_id
+                self.nodes[node_id] = _VNode(
+                    node_id, msg["resources"], msg.get("labels"))
+                self._reapply_drain_locked(self.nodes[node_id])
+            self._emit_event(_const.EVENT_NODE_JOIN, node=node_id,
+                             message=f"host {host_id} registered",
+                             host=host_id)
+            conn.send({"rid": msg["rid"], "ok": True,
+                       "session_id": self.session_id})
+            self._schedule()
+            return wid
+        if t == "resource_view":
+            # follower load delta (reference: ray_syncer resource-view
+            # broadcasts) — stored on the host entry, served per node by
+            # list_nodes (and the dashboard's nodes page on top of it)
+            with self.lock:
+                info = self.hosts.get(msg.get("host_id"))
+                if info is not None:
+                    info["view"] = {
+                        "mem_usage": msg.get("mem_usage"),
+                        "load1": msg.get("load1"),
+                        "num_worker_procs": msg.get("num_worker_procs"),
+                        "ts": time.monotonic(),
+                    }
+                    hist = self.node_history.setdefault(
+                        msg.get("host_id"),
+                        collections.deque(maxlen=720))
+                    hist.append({"ts": time.time(),
+                                 "mem_usage": msg.get("mem_usage"),
+                                 "load1": msg.get("load1"),
+                                 "num_worker_procs":
+                                     msg.get("num_worker_procs")})
+            return wid
+        if t == "pong":
+            with self.lock:
+                info = self.hosts.get(msg.get("host_id"))
+                if info is not None:
+                    info["last_pong"] = time.monotonic()
             return wid
         if t == "log_line":
             # fan out to every driver (reference: log_monitor republishing
@@ -1383,6 +1448,10 @@ class GcsServer:
                     for w in self.workers.values():
                         if w.node_id == node_id and not w.dead:
                             notify.append(w.conn)
+                    host_id = self.node_hosts.get(node_id)
+                    info = self.hosts.get(host_id) if host_id else None
+                    if info is not None and info.get("conn") is not None:
+                        notify.append(info["conn"])
             if ok:
                 self._emit_event(
                     _const.EVENT_NODE_DRAIN,
@@ -1409,7 +1478,8 @@ class GcsServer:
                                         and n.drain_grace else None),
                      "total": fp.float_dict(n.total),
                      "available": fp.float_dict(n.available),
-                     "quarantined_chips": list(n.quarantined_chips)}
+                     "quarantined_chips": list(n.quarantined_chips),
+                     "host_view": self._host_view_for(n.node_id)}
                     for n in self.nodes.values()
                 ]
             conn.send({"rid": msg["rid"], "nodes": nodes})
@@ -2246,9 +2316,15 @@ class GcsServer:
                 used -= e.get("size", 0)
                 to_spill.append(oid)
             self.host_shm_bytes[host] = used
+            agent = (self.hosts.get(host) or {}).get("conn")
         if not to_spill:
             return
-        if host == HEAD_HOST and self.session_id:
+        if agent is not None:
+            try:
+                agent.send({"type": "spill_objects", "oids": to_spill})
+            except ConnectionClosed:
+                pass
+        elif self.session_id:
             for oid in to_spill:
                 try:
                     self._head_store().spill(oid)
@@ -2256,9 +2332,8 @@ class GcsServer:
                     logger.exception("spill of %s failed", oid)
 
     def _object_locations_locked(self, entry: dict) -> list:
-        if HEAD_HOST not in entry.get("hosts", ()):
-            return []
-        return [(HEAD_HOST, self.head_object_addr)]
+        return [(h, self.hosts[h]["object_addr"])
+                for h in entry.get("hosts", ()) if h in self.hosts]
 
     # ---------------------------------------------------- reference counting
     # GCS-arbitered equivalent of the reference's distributed ReferenceCounter
@@ -2382,6 +2457,7 @@ class GcsServer:
         reference_counter release cascades)."""
         by_host: dict[str, list[str]] = collections.defaultdict(list)
         cascade: list[str] = []
+        agent_msgs = []
         dev_frees: dict = collections.defaultdict(list)  # wid → tensor ids
         with self.lock:
             for oid in oids:
@@ -2403,12 +2479,21 @@ class GcsServer:
                         f"{tid}r{i:04d}" in self.objects
                         for i in range(spec["num_returns"])):
                     cascade.extend(self._drop_lineage_locked(tid))
+            for h, lst in by_host.items():
+                info = self.hosts.get(h)
+                if info is not None and info.get("conn") is not None:
+                    agent_msgs.append((info["conn"], lst))
         if self.session_id:
             for oid in by_host.get(HEAD_HOST, ()):
                 try:
                     self._head_store().delete(oid)
                 except Exception:
                     pass
+        for conn, lst in agent_msgs:
+            try:
+                conn.send({"type": "delete_objects", "oids": lst})
+            except ConnectionClosed:
+                pass
         if dev_frees:
             # tell owners to drop the freed objects' HBM registry entries
             with self.lock:
@@ -2428,7 +2513,13 @@ class GcsServer:
 
     def _delete_host_copy(self, oid: str, host: str) -> None:
         """Delete one host's store copy of an object with no table entry."""
-        if host == HEAD_HOST and self.session_id:
+        info = self.hosts.get(host)
+        if info is not None and info.get("conn") is not None:
+            try:
+                info["conn"].send({"type": "delete_objects", "oids": [oid]})
+            except ConnectionClosed:
+                pass
+        elif host == HEAD_HOST and self.session_id:
             try:
                 self._head_store().delete(oid)
             except Exception:
@@ -2766,10 +2857,22 @@ class GcsServer:
                 return
             self._spawn_pending[node_id].extend(
                 (now, c, rh) for c in assignments)
+            host = self.node_hosts.get(node_id, HEAD_HOST)
+            agent_conn = self.hosts.get(host, {}).get("conn")
             renv = self.runtime_envs.get(rh) if rh else None
-            spawn_plan.append((node_id, assignments, renv))
-        for node_id, assignments, renv in spawn_plan:
-            self.spawn_worker_cb(len(assignments), node_id, assignments, renv)
+            spawn_plan.append((node_id, assignments, agent_conn, renv))
+        for node_id, assignments, agent_conn, renv in spawn_plan:
+            if agent_conn is not None:
+                try:
+                    agent_conn.send({"type": "spawn_workers",
+                                     "node_id": node_id,
+                                     "assignments": assignments,
+                                     "runtime_env": renv})
+                except ConnectionClosed:
+                    pass
+            else:
+                self.spawn_worker_cb(len(assignments), node_id, assignments,
+                                     renv)
 
     def _release_lease(self, target: str, token=None, make_idle: bool = True):
         with self.lock:
@@ -2827,6 +2930,23 @@ class GcsServer:
             self._on_object_ready(oid, where="inline", inline=blob,
                                   size=len(blob), is_error=True,
                                   only_if_pending=True)
+
+    def _host_view_for(self, node_id: str) -> dict | None:
+        """Latest resource-view delta of the host backing a node (caller
+        holds the lock). Views older than 3 intervals are served with a
+        stale flag rather than dropped — a wedged agent's LAST view is
+        still diagnostic."""
+        host = self.node_hosts.get(node_id, HEAD_HOST)
+        view = (self.hosts.get(host) or {}).get("view")
+        if not view:
+            return None
+        out = dict(view)
+        age = time.monotonic() - out.pop("ts")
+        out["age_s"] = round(age, 1)
+        # instance() (not get()) — this runs per node under the GCS lock
+        interval = RayConfig.instance().resource_view_interval_s
+        out["stale"] = age > 3 * max(0.1, interval)
+        return out
 
     def _pinned_fn_keys_locked(self) -> set:
         """fn: store keys that MUST survive eviction: referenced by a
@@ -3336,6 +3456,16 @@ class GcsServer:
                 self._spawn_pending[node_id_w].extend(
                     (now, None, "") for _ in range(n))
                 spawn_plan.append((node_id_w, [None] * n, ""))
+            agent_sends = []
+            for node_id, assignments, rh in spawn_plan:
+                host = self.node_hosts.get(node_id, HEAD_HOST)
+                agent_conn = self.hosts.get(host, {}).get("conn")
+                if agent_conn is not None:
+                    agent_sends.append(
+                        (agent_conn, node_id, assignments,
+                         self.runtime_envs.get(rh) if rh else None))
+            spawn_plan = [(nid, a, rh) for nid, a, rh in spawn_plan
+                          if self.hosts.get(self.node_hosts.get(nid, HEAD_HOST), {}).get("conn") is None]
 
         for conn, msg in to_send:
             try:
@@ -3350,6 +3480,13 @@ class GcsServer:
         for hconn, lw in revokes:
             try:
                 hconn.send({"type": "lease_revoke", "wid": lw})
+            except ConnectionClosed:
+                pass
+        for agent_conn, node_id, assignments, renv in agent_sends:
+            try:
+                agent_conn.send({"type": "spawn_workers", "node_id": node_id,
+                                 "assignments": assignments,
+                                 "runtime_env": renv})
             except ConnectionClosed:
                 pass
         for node_id, assignments, rh in spawn_plan:
@@ -3730,7 +3867,10 @@ class GcsServer:
             pass
 
     def _unpersist_actor(self, aid: str) -> None:
-        if self.storage is not None:
+        # a stopped GCS keeps its persisted actors: their workers' sockets
+        # close because the GCS went down, and the table is already closed
+        # (the JAX package's delete raises there, on a connection thread)
+        if self.storage is not None and not self.stopped:
             self.storage.delete("actors", aid)
 
     def _kill_actor(self, aid: str, no_restart: bool):
@@ -3946,7 +4086,27 @@ class GcsServer:
 
     def set_head_object_addr(self, addr: str) -> None:
         with self.lock:
-            self.head_object_addr = addr
+            self.hosts[HEAD_HOST]["object_addr"] = addr
+
+    def _remove_host(self, host_id: str):
+        """A follower host's agent connection died: its nodes die with it."""
+        with self.lock:
+            if host_id not in self.hosts or host_id == HEAD_HOST:
+                return
+            self.hosts.pop(host_id, None)
+            # a departed host's retained series must go with it, or the
+            # metrics tab / node_mem_usage gauge serves dead nodes forever
+            self.node_history.pop(host_id, None)
+            doomed_nodes = [n for n, h in self.node_hosts.items() if h == host_id]
+            # drop the host from every object's location set + accounting
+            for entry in self.objects.values():
+                entry.get("hosts", set()).discard(host_id)
+                entry.get("shm_live", set()).discard(host_id)
+            self.host_shm_bytes.pop(host_id, None)
+        for node_id in doomed_nodes:
+            self._remove_node(
+                node_id,
+                reason=f"host {host_id} connection lost / failed health checks")
 
     def _reapply_drain_locked(self, node: "_VNode") -> None:
         """Restore a persisted drain onto a (re)registering node: a drain
@@ -3968,6 +4128,7 @@ class GcsServer:
             if node is None or not node.alive:
                 return
             node.alive = False
+            lost = fp.float_dict(node.total)
             doomed = [w for w in self.workers.values()
                       if w.node_id == node_id and w.kind == "worker" and not w.dead]
             # PGs with bundles on this node go back to pending (reference: PG
@@ -3991,7 +4152,10 @@ class GcsServer:
             _const.EVENT_NODE_LEAVE,
             severity=_const.EVENT_SEVERITY_WARNING, node=node_id,
             message=f"node left the cluster: {reason or 'unknown cause'}",
-            reason=reason, n_workers_lost=len(doomed))
+            reason=reason, n_workers_lost=len(doomed),
+            # the capacity the cluster lost with the node (the JAX package's
+            # event carries the worker count only)
+            lost_resources=lost)
         for pg_id_, pg_name_ in unplaced_pgs:
             self._emit_event(
                 _const.EVENT_PG_PENDING,

@@ -1,17 +1,18 @@
 """Node: session bootstrap — starts the GCS and owns the worker pool.
 
-The port's copy of ray_tpu/_private/node.py, on one host: the session lives
-under <TMPDIR>/ray_tpu_torch (constants.temp_root), a worker granted whole GPUs sees exactly those
-through CUDA_VISIBLE_DEVICES, and a worker with none is hidden from every
-card. Workers boot ray_tpu_torch._private.worker_main. There is no
-per-host runtime-env agent: pip/conda runtime envs are not ported
-(ROADMAP.md Queue 1 item 18).
+The port's copy of ray_tpu/_private/node.py: the session lives under
+<TMPDIR>/ray_tpu_torch (constants.temp_root), a worker granted whole GPUs
+sees exactly those through CUDA_VISIBLE_DEVICES, and a worker with none is
+hidden from every card. Workers boot ray_tpu_torch._private.worker_main.
+There is no per-host runtime-env agent: pip/conda runtime envs are not
+ported (ROADMAP.md Queue 1 item 18).
 
 (reference: python/ray/_private/node.py:47 starts gcs/raylet/log-monitor
 subprocesses; here the GCS runs as an in-process thread and workers are
-subprocesses. Multi-node: a follower node will run a thin agent that connects
-its worker pool to a remote GCS over TCP — message types are already
-node-agnostic.)
+subprocesses. This is the head host, "host-0": its object server
+(`make_object_server`) is host-0's entry in the GCS's host table. A
+follower host runs a node agent (`_private/node_agent.py`) that connects
+its own worker pool and object server to the GCS over TCP.)
 """
 
 from __future__ import annotations

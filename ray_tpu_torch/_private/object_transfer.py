@@ -1,12 +1,13 @@
-"""Cross-host object plane: the head host's object server.
+"""Cross-host object plane: chunked pull of shm objects over TCP.
 
-The port's copy of the serving half of ray_tpu/_private/object_transfer.py.
-Every host of a session runs one `ObjectPlaneServer` in front of its local
-store, serving shm objects in chunks over TCP (reference:
-src/ray/object_manager/object_manager.h:128 — chunked push/pull, default
-5 MiB chunks). The port runs on one host: the pulling side (the JAX
-package's ``ObjectFetcher``) and the follower hosts that would use it are
-not ported yet (ROADMAP.md Queue 1 item 17).
+The port's copy of ray_tpu/_private/object_transfer.py. Every host of a
+session runs one `ObjectPlaneServer` in front of its local store; a worker
+that needs a remote object dials the owning host's server, streams the
+payload in chunks into its own store, seals it, and registers the new copy
+with the GCS — pull-on-demand with per-object dedup, the same semantics as
+the reference's node-to-node transfer plane
+(reference: src/ray/object_manager/object_manager.h:128 — chunked push/pull,
+default 5 MiB chunks; pull_manager.h:50 admission/dedup).
 """
 
 from __future__ import annotations
@@ -18,10 +19,9 @@ import threading
 from ray_tpu_torch._private.protocol import (
     ConnectionClosed,
     MsgConnection,
+    connect_tcp,
     listen_tcp,
 )
-
-from ray_tpu_torch.exceptions import _not_ported
 
 logger = logging.getLogger(__name__)
 
@@ -31,13 +31,22 @@ CHUNK = _RayConfig.get("object_transfer_chunk")
 
 
 def make_object_server(store, host: str | None = None):
-    """The head host's object-plane server (the in-process Python server
-    below). RAY_TPU_TORCH_OBJECT_SERVER_BACKEND=native (the JAX package's
-    C++ server) is not ported: ROADMAP.md Queue 1 item 17."""
+    """Backend selector: RAY_TPU_TORCH_OBJECT_SERVER_BACKEND=native runs the
+    C++ server (csrc/object_server.cc) for file-backed stores; default is
+    the in-process Python server below. The arena backend keeps its own
+    layout, which the C++ server cannot read: there the Python server
+    serves, with a logged warning."""
     from ray_tpu_torch._private.ray_config import RayConfig
 
     if RayConfig.get("object_server_backend") == "native":
-        raise _not_ported("the native object server", "item 17")
+        from ray_tpu_torch._private.native_object_server import (
+            NativeObjectServer)
+        from ray_tpu_torch._private.object_store import ShmObjectStore
+
+        if isinstance(store, ShmObjectStore):
+            return NativeObjectServer(store, host)
+        logger.warning("native object server needs the file store backend; "
+                       "falling back to the python server")
     return ObjectPlaneServer(store, host)
 
 
@@ -138,6 +147,93 @@ class ObjectPlaneServer:
                 conn.close()
             except Exception:
                 pass
+
+
+class ObjectFetcher:
+    """Per-process client side: cached connections, per-object in-flight
+    dedup (two threads needing the same remote object fetch it once)."""
+
+    def __init__(self, store):
+        self.store = store
+        self._conns: dict[str, MsgConnection] = {}
+        self._lock = threading.Lock()
+        self._inflight: dict[str, threading.Event] = {}
+        # one request/response conversation per connection at a time — two
+        # threads interleaving frames on one socket would cross-read payloads
+        self._addr_locks: dict[str, threading.Lock] = {}
+
+    def fetch(self, oid: str, address: str) -> "str | bool":
+        """Pull `oid` from the object server at `address` into the local
+        store. Returns the landing tier ("shm"/"spill") on a fresh pull,
+        True when already/concurrently fetched, False on failure. Safe to
+        call concurrently."""
+        with self._lock:
+            if self.store.contains(oid):
+                return True
+            ev = self._inflight.get(oid)
+            if ev is None:
+                self._inflight[oid] = ev = threading.Event()
+                owner = True
+            else:
+                owner = False
+        if not owner:
+            ev.wait(timeout=300)
+            return self.store.contains(oid)
+        try:
+            ok = self._fetch_once(oid, address)
+        finally:
+            ev.set()
+            with self._lock:
+                self._inflight.pop(oid, None)
+        return ok
+
+    def _fetch_once(self, oid: str, address: str) -> "str | bool":
+        with self._lock:
+            alock = self._addr_locks.setdefault(address, threading.Lock())
+        with alock:
+            return self._fetch_conversation(oid, address)
+
+    def _fetch_conversation(self, oid: str, address: str) -> "str | bool":
+        if address.startswith("native:"):
+            # remote host runs the C++ server: binary codec, one connection
+            # per fetch (the server is cheap-threaded; keep the client simple)
+            from ray_tpu_torch._private.native_object_server import (
+                fetch_native)
+
+            host, _, port = address[len("native:"):].rpartition(":")
+            return fetch_native(self.store, oid, host or "127.0.0.1",
+                                int(port))
+        try:
+            conn = self._conn(address)
+            conn.send({"type": "fetch", "oid": oid})
+            head = conn.recv()
+            if not head.get("ok"):
+                return False
+            size = head["size"]
+            parts = []
+            got = 0
+            while got < size:
+                frame = conn.recv()
+                data = frame["data"]
+                parts.append(data)
+                got += len(data)
+            tier = self.store.put_parts(oid, parts, size)
+            return tier or "shm"
+        except (ConnectionClosed, OSError, KeyError):
+            with self._lock:
+                self._conns.pop(address, None)
+            return False
+
+    def _conn(self, address: str) -> MsgConnection:
+        with self._lock:
+            conn = self._conns.get(address)
+        if conn is not None and not conn.closed:
+            return conn
+        host, _, port = address.rpartition(":")
+        conn = connect_tcp(host, int(port), timeout=10.0)
+        with self._lock:
+            self._conns[address] = conn
+        return conn
 
 
 def _local_ip() -> str:

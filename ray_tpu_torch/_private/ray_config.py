@@ -51,7 +51,7 @@ class RayConfig:
     # Chunk size for cross-host object pulls.
     object_transfer_chunk: int = 5 * 1024 * 1024
     # Object-plane server: "python" (framed MsgConnection) or "native"
-    # (C++ cpp/object_server.cc — zero Python on the transfer hot path;
+    # (C++ csrc/object_server.cc — zero Python on the transfer hot path;
     # file-backed store only).
     object_server_backend: str = "python"
 
@@ -84,10 +84,17 @@ class RayConfig:
     worker_platform: str = "cpu"
     # Stream worker stdout/stderr to the driver.
     log_to_driver: bool = True
-    # Period of the GCS's housekeeping tick: retained histories and parked
-    # relay waiters (reference: gcs_health_check_manager.h:45). The
-    # follower-host health budget and resource views go with item 17.
+    # GCS → node-agent health-check period and miss budget: a follower host
+    # whose agent misses this many pongs in a row is removed (reference:
+    # gcs_health_check_manager.h:45, ray_config_def.h:877). The same tick
+    # samples the retained histories and expires parked relay waiters.
     health_check_period_s: float = 1.0
+    health_check_failure_threshold: int = 5
+    # Follower agents broadcast a resource-view delta (memory usage, load,
+    # live worker count) this often (reference: ray_syncer RESOURCE_VIEW
+    # messages); 0 disables. Feeds the GCS host table and list_nodes'
+    # host_view.
+    resource_view_interval_s: float = 2.0
 
     # --- collectives / fault detection ----------------------------------
     # While blocked in a host-plane collective wait, poll the liveness of

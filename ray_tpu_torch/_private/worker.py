@@ -26,7 +26,6 @@ from ray_tpu_torch._private.protocol import ConnectionClosed, connect_address
 from ray_tpu_torch._private.constants import (EXEC_LOOP_METHOD,
                                               TENSOR_TRANSPORT_ATTR)
 from ray_tpu_torch.exceptions import (
-    _not_ported,
     ActorDiedError,
     GetTimeoutError,
     ObjectLostError,
@@ -243,6 +242,7 @@ class CoreWorker:
             # accounting and the object directory's tier info go stale
             self.store.on_evict = self._report_evictions
         self._reported_evictions = 0  # store.evictions already counted
+        self._fetcher = None  # lazy ObjectFetcher for cross-host pulls
         self._stream_acks: dict[str, int] = {}  # producing streams: consumed idx
         self._stream_events: dict[str, threading.Event] = {}
         self._stream_cancelled: set[str] = set()
@@ -1323,13 +1323,27 @@ class CoreWorker:
         return value
 
     def _pull_remote(self, oid: str, reply: dict) -> bool:
-        """Object is in shm on another host. The port runs on one host:
-        cross-host pulls are not ported (ROADMAP.md Queue 1 item 17).
-        Returns False when no other host holds a copy."""
-        for host, addr in reply.get("locations") or []:
-            if host != self.host_id and addr:
-                raise _not_ported(f"pulling object {oid} from host {host} "
-                                  "(cross-host object pulls)", "item 17")
+        """Object is in shm on another host: chunk-pull it into the local
+        store and register the new copy (reference: pull-on-demand,
+        object_manager.h:128). Returns False when no copy is reachable."""
+        from ray_tpu_torch._private.object_transfer import ObjectFetcher
+
+        if self._fetcher is None:
+            self._fetcher = ObjectFetcher(self.store)
+        locations = reply.get("locations") or []
+        for host, addr in locations:
+            if host == self.host_id or not addr:
+                continue
+            tier = self._fetcher.fetch(oid, addr)
+            if tier:
+                if tier not in ("shm", "spill"):
+                    # fetch dedup'd into a concurrent pull: ask the store
+                    # which tier the winner actually landed on
+                    tier = self.store.tier_of(oid) or "shm"
+                self.send_no_reply({"type": "object_put", "oid": oid,
+                                    "where": "shm", "size": reply.get("size", 0),
+                                    "host": self.host_id, "tier": tier})
+                return True
         return False
 
     def get_object(self, oid: str, timeout: float | None = None) -> Any:

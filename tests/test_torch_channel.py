@@ -239,6 +239,11 @@ _ALLOWED = {
     ("silent-swallow", "_private/gcs.py", "GcsServer._pub_send_loop"),
     ("silent-swallow", "_private/gcs.py", "GcsServer.crash_for_testing"),
     ("silent-swallow", "_private/log_monitor.py", "LogMonitor._loop"),
+    # the follower's agent (baseline.txt's node_agent.py entries): one bad
+    # delete/spill request must not kill the dispatch loop, and teardown
+    # sweeps on past a store whose pins are already gone
+    ("silent-swallow", "_private/node_agent.py", "NodeAgent._dispatch"),
+    ("silent-swallow", "_private/node_agent.py", "NodeAgent.shutdown"),
     ("silent-swallow", "_private/object_transfer.py",
      "ObjectPlaneServer._serve"),
     ("silent-swallow", "_private/pubsub.py", "Subscriber.close"),
@@ -340,7 +345,8 @@ _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
 # and device objects
 _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "events", "fixed_point", "gcs", "gcs_storage", "ids",
-            "local_mode", "log_monitor", "memory_monitor", "node",
+            "local_mode", "log_monitor", "memory_monitor",
+            "native_object_server", "node", "node_agent",
             "object_store", "object_transfer", "pg_policy", "poll",
             "procutil", "protocol", "pubsub", "ray_config",
             "runtime_env_container", "serialization", "shm_arena",

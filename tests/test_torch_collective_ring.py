@@ -1,8 +1,8 @@
 """The port's host-plane ring collectives against the JAX package's.
 
 Twins of tests/test_collective_ring.py (all but
-``test_ring_collective_cross_host``, which needs a follower host: ROADMAP.md
-Queue 1 item 17): large host tensors ride the object store by ref, the
+``test_ring_collective_cross_host``, which needs follower hosts: its twin
+is in tests/test_torch_multihost.py): large host tensors ride the object store by ref, the
 rendezvous actor carries only small messages, odd sizes take the padded
 path, and destroying a group releases its actor. Each scenario runs
 through both runtimes (one module-scoped session each, tests/torch_twins.py)

@@ -4,8 +4,8 @@ distributed hash shuffle into per-partition aggregate and join tasks.
 Twins of tests/test_data_groupby_join.py, run on both packages and
 compared (tests/torch_twins.py). ``test_groupby_multihost`` (slow in the
 reference) runs its partitions across a follower host made by
-``Cluster.add_host``: the port has no follower hosts yet, so its twin
-waits for ROADMAP Queue 1 item 17 (multi-host).
+``Cluster.add_host``; its twin is in tests/test_torch_multihost.py, with
+the other cross-host cases.
 """
 
 from __future__ import annotations

@@ -11,8 +11,8 @@ the produced dtype (the JAX package hands it a host numpy array), a bf16
 tensor flagged CUDA is staged through the port's serializer and lands on
 the consumer's card (or is refused where there is none), the alias "tpu"
 is refused, and the registry holds the producer's tensor itself.
-``test_device_object_across_follower_hosts`` needs a second host (ROADMAP
-Queue 1 item 17).
+``test_device_object_across_follower_hosts`` needs a second host: its twin
+is in tests/test_torch_multihost.py.
 """
 
 from __future__ import annotations

@@ -6,8 +6,9 @@ runs on this `.remote()` path.
 Each test starts both runtimes fresh, as the reference's
 `ray_start_regular` does (4 CPUs: the hog and lease tests need the whole
 node), and runs its scenario through ``ray_tpu`` and ``ray_tpu_torch``;
-the two sides agree. `test_locality_large_arg_no_cross_host_bytes` needs a
-second host (ROADMAP Queue 1 item 17).
+the two sides agree. `test_locality_large_arg_no_cross_host_bytes` makes
+its own cluster with a follower host (``Cluster.add_host``), as the
+reference's does.
 """
 
 from __future__ import annotations
@@ -209,3 +210,48 @@ def test_lease_revoked_for_pending_gcs_work(pkgs):
     actor is placed (reference: leases spill back under pressure)."""
     _same(pkgs, _scn_lease_revoked, ("pong", "done"))
 
+
+def _scn_locality(rt):
+    """A task whose big argument lives on a follower host is leased there:
+    the bytes never cross hosts (reference: lease_policy.h locality)."""
+    rt.shutdown()
+    cluster = sub(rt, "cluster_utils").Cluster(head_node_args=dict(
+        num_cpus=2, num_workers=1, max_workers=8))
+    try:
+        host = cluster.add_host(num_cpus=2)
+        on = sub(rt, "util.scheduling_strategies").NodeAffinitySchedulingStrategy
+        key = ("RAY_TPU_TORCH_HOST_ID" if rt.__name__ == "ray_tpu_torch"
+               else "RAY_TPU_HOST_ID")
+
+        @rt.remote
+        def make_big(n):
+            import numpy as np
+
+            return np.full((n,), 2, dtype=np.float32)
+
+        @rt.remote
+        def consume(arr):
+            import os
+
+            return os.environ.get(key, "host-0"), float(arr.sum())
+
+        # ~1.6 MB, in the follower's shm
+        big = make_big.options(
+            scheduling_strategy=on(node_id=host)).remote(400_000)
+        rt.wait([big], timeout=60)  # caches readiness + location
+        host_ran, total = rt.get(consume.remote(big), timeout=60)
+        core = sub(rt, "_private.api")._get_worker()
+        # ran next to its argument; the bytes never reached the driver
+        return (host_ran == host, total,
+                core.store.contains(big.hex()))
+    finally:
+        cluster.shutdown()
+
+
+def test_locality_large_arg_no_cross_host_bytes():
+    import ray_tpu
+    import ray_tpu_torch
+
+    a, b = twin((ray_tpu, ray_tpu_torch), _scn_locality, sequential=True,
+                serve_cleanup=False)
+    assert a == b == (True, 2.0 * 400_000, False), (a, b)

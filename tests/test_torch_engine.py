@@ -239,6 +239,8 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch._private.object_store\n"
         "import ray_tpu_torch._private.shm_arena\n"
         "import ray_tpu_torch._private.object_transfer\n"
+        "import ray_tpu_torch._private.node_agent\n"
+        "import ray_tpu_torch._private.native_object_server\n"
         "import ray_tpu_torch._private.protocol, ray_tpu_torch._private.pubsub\n"
         "import ray_tpu_torch._private.events\n"
         "import ray_tpu_torch._private.task_events\n"

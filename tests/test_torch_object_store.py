@@ -402,3 +402,43 @@ def test_session_end_to_end_on_each_backend(backend):
         outs.append(r.stdout.strip().splitlines()[-1])
     assert outs[0] == outs[1]
     assert outs[1] == "[2.0, True, True, True, (1, 512)] True []"
+
+
+@pytest.mark.parametrize("backend", ["arena", "file"])
+def test_transfer_plane_serves_both_tiers(backend, monkeypatch):
+    """Twin of tests/test_store_backends.py::test_transfer_plane_serves_both_tiers:
+    the chunked TCP plane serves arena objects from pinned views (releasing
+    the pin after the send) and spilled objects from disk, and the port's
+    ObjectFetcher pulls both, in each package on each backend."""
+    from torch_twins import env_name, pair, sub
+
+    def scn(rt):
+        monkeypatch.setenv(env_name(rt, "STORE_BACKEND"), backend)
+        make = sub(rt, "_private.object_store").make_object_store
+        xfer = sub(rt, "_private.object_transfer")
+        tag = f"xfer{backend}{rt.__name__.replace('_', '')}"
+        src, dst = make(tag + "src"), make(tag + "dst")
+        srv = xfer.ObjectPlaneServer(src, host="127.0.0.1")
+        try:
+            payload = os.urandom(300_000)
+            src.put_parts("aa11", [payload], len(payload))
+            spilled = os.urandom(120_000)
+            src.put_parts("bb22", [spilled], len(spilled))
+            out = [src.spill("bb22")]  # the serve-from-spill path
+            fetcher = xfer.ObjectFetcher(dst)
+            out += [bool(fetcher.fetch("aa11", srv.address)),
+                    bool(fetcher.fetch("bb22", srv.address)),
+                    bytes(dst.get("aa11").buf) == payload,
+                    bytes(dst.get("bb22").buf) == spilled,
+                    fetcher.fetch("nope", srv.address)]  # the miss path
+            if hasattr(src, "used"):  # arena: the send must not leak its pin
+                src.delete("aa11")
+                out.append(src.used())
+            return out
+        finally:
+            srv.stop()
+            src.cleanup_session()
+            dst.cleanup_session()
+
+    want = [True, True, True, True, True, False]
+    pair(scn, want + [0] if backend == "arena" else want)

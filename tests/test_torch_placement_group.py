@@ -300,10 +300,36 @@ def test_nodes_listing(clusters):
 
 
 def test_port_cluster_refuses_follower_hosts(clusters):
-    """add_host/remove_host need the multi-host runtime: the port refuses
-    them naming its ROADMAP item, as the runtime's other refusals do."""
-    _, cl = clusters
-    c = cl["ray_tpu_torch"]
-    for call in (lambda: c.add_host(num_cpus=1), lambda: c.remove_host("h")):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            call()
+    """add_host/remove_host work in the port as in the JAX package: a real
+    follower agent joins beside the virtual nodes, a task pinned to it runs
+    there, and killing it fails its node."""
+    pkgs, cl = clusters
+
+    def scn(rt):
+        c = cl[rt.__name__]
+        host = c.add_host(num_cpus=1)
+        key = ("RAY_TPU_TORCH_HOST_ID" if is_port(rt) else "RAY_TPU_HOST_ID")
+
+        @rt.remote
+        def where():
+            import os
+
+            return os.environ.get(key)
+
+        on = sub(rt, "util.scheduling_strategies").NodeAffinitySchedulingStrategy
+        ran = rt.get(where.options(scheduling_strategy=on(node_id=host))
+                     .remote(), timeout=60)
+        alive = {n["node_id"]: n["alive"] for n in rt.nodes()}
+        c.remove_host(host)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and any(
+                n["alive"] for n in rt.nodes() if n["node_id"] == host):
+            time.sleep(0.1)
+        return (host, ran, alive,
+                {n["node_id"]: n["alive"] for n in rt.nodes()})
+
+    host_alive = {"node-0": True, "node-1": True, "node-2": True,
+                  "host-3": True}
+    same(pkgs, scn, ("host-3", "host-3", host_alive,
+                     {**host_alive, "host-3": False}),
+         serve_cleanup=False, sequential=True)

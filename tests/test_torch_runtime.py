@@ -942,19 +942,33 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
         "item 18": lambda: runtime_env_container.build_worker_argv(
             {"image_uri": "img"}),
         "item 22": lambda: rt.start_cpp_worker(),
-        # a copy of an object on another host: cross-host pulls
-        "item 17": lambda: w._pull_remote(
-            "ff" * 10, {"locations": [["host-9", "10.0.0.9:1"]]}),
     }.items():
         msg = _refused(call)
         assert msg and f"ROADMAP.md Queue 1 {item}" in msg, (item, msg)
+    # multi-host (item 17) is ported: a copy on an unreachable host is a
+    # failed pull (False), not a refusal, and a native server on a
+    # file-backed store starts and serves
+    assert w._pull_remote("ff" * 10,
+                          {"locations": [["host-9", "127.0.0.1:1"]]}) is False
+    assert not w._pull_remote("ff" * 10, {"locations": [["host-0", "a"]]})
+    from ray_tpu_torch._private.native_object_server import fetch_native
+    from ray_tpu_torch._private.object_store import ShmObjectStore
+
     os.environ["RAY_TPU_TORCH_OBJECT_SERVER_BACKEND"] = "native"
+    src, dst = ShmObjectStore("refusal_src"), ShmObjectStore("refusal_dst")
     try:
-        msg = _refused(lambda: object_transfer.make_object_server(None))
+        srv = object_transfer.make_object_server(src)
+        try:
+            src.put_parts("ab12", [b"xyz" * 1000], 3000)
+            host, port = srv.address[len("native:"):].rsplit(":", 1)
+            assert fetch_native(dst, "ab12", host, int(port)) == "shm"
+            assert bytes(dst.get("ab12").buf) == b"xyz" * 1000
+        finally:
+            srv.stop()
     finally:
         del os.environ["RAY_TPU_TORCH_OBJECT_SERVER_BACKEND"]
-    assert "ROADMAP.md Queue 1 item 17" in msg
-    assert not w._pull_remote("ff" * 10, {"locations": [["host-0", "a"]]})
+        src.cleanup_session()
+        dst.cleanup_session()
 
 
 def test_method_tensor_transport_device_stamps_the_attribute(pkgs):
@@ -1005,17 +1019,38 @@ def test_compiled_dag_exec_loop_is_refused_in_the_actor(pkgs):
 
 
 def test_follower_host_registration_is_refused(pkgs):
-    """The GCS refuses a follower host's agent (ROADMAP.md Queue 1 item
-    17) and adds no node for it."""
+    """The GCS accepts a follower host's agent (ROADMAP.md Queue 1 item 17,
+    ported): ``register_host`` adds its node and its host-table entry, and
+    the agent connection's close removes the host and fails the node."""
     import ray_tpu_torch as rt
+    from ray_tpu_torch._private.protocol import connect_address
 
-    w = rt._private.api._get_worker()
-    reply = w.rpc({"type": "register_host", "host_id": "host-1",
-                   "node_id": "node-follower", "resources": {"CPU": 1.0}})
-    assert reply["ok"] is False
-    assert "ROADMAP.md Queue 1 item 17" in str(reply.get("error"))
-    nodes = w.rpc({"type": "list_nodes"})["nodes"]
-    assert [n["node_id"] for n in nodes] == [rt._private.api._node.gcs.local_node_id]
+    node = rt._private.api._node
+    gcs = node.gcs
+    conn = connect_address(node.address)
+    try:
+        conn.send({"type": "register_host", "rid": 1, "host_id": "host-reg",
+                   "node_id": "host-reg", "resources": {"CPU": 1.0},
+                   "object_addr": "127.0.0.1:1"})
+        reply = conn.recv()
+        assert reply["ok"] is True and reply["session_id"] == node.session_id
+        with gcs.lock:
+            assert gcs.hosts["host-reg"]["object_addr"] == "127.0.0.1:1"
+            assert gcs.node_hosts["host-reg"] == "host-reg"
+        w = rt._private.api._get_worker()
+        row = next(n for n in w.rpc({"type": "list_nodes"})["nodes"]
+                   if n["node_id"] == "host-reg")
+        assert row["alive"] and row["total"] == {"CPU": 1.0}
+    finally:
+        conn.close()
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline:
+        with gcs.lock:
+            gone = "host-reg" not in gcs.hosts
+        if gone and not gcs.nodes["host-reg"].alive:
+            break
+        time.sleep(0.05)
+    assert gone and not gcs.nodes["host-reg"].alive
 
 
 def test_autoscaler_attach_is_refused(pkgs):

@@ -9,11 +9,10 @@ side reads its own GCS tables, its own config flags (``RAY_TPU_*`` and
 the port's ``RAY_TPU_TORCH_*``) and its own segments
 (``/dev/shm/rtpu_<session>_*`` and the port's ``rtpt_<session>_*``).
 
-Two reference cases need a second host (``Cluster.add_host``), which the
-port does not have yet: ``test_reconstruction_after_host_loss`` and
-``test_put_object_lost_is_an_error``
-(tests/test_object_lifecycle.py:149, 177). Their twins wait for ROADMAP
-Queue 1 item 17 (multi-host).
+Two reference cases need a second host (``Cluster.add_host``):
+``test_reconstruction_after_host_loss`` and
+``test_put_object_lost_is_an_error`` (tests/test_object_lifecycle.py:149,
+177). Their twins are in tests/test_torch_multihost.py.
 """
 
 from __future__ import annotations
