@@ -389,6 +389,32 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    After ``shutdown()`` no segment of the session (host-1's namespace
    included) is left, and the card's free memory is back within 1 GiB of
    its value before the phase.
+20. Runtime envs and the autoscaler (after phase 19, before phase 11), with
+   phase 19's env. A tiny local package is written to a temp directory and
+   installed offline: ``runtime_env={"pip": ["--no-index",
+   "--no-build-isolation", <dir>], "env_vars": {...}}``.
+   a. A session whose head has one GPU: a ``num_gpus=1`` actor in that env
+      boots through the worker_boot shim under a venv the head's
+      runtime-env agent builds (``--system-site-packages`` and the .pth
+      bridge give it the machine's CUDA torch), imports the package, sees
+      the env var and the card, and runs ``follower_serve``'s body:
+      Llama-3-8B from the seed, token, KV and logits bytes and phase 4's
+      ids equal in-process serving's, flash and ragged launched in its
+      worker only. A second actor of the same spec boots from the cache
+      (same prefix, no rebuild); a plain task does not see the package.
+      Prints the venv's build time, the cached boot and the first token.
+   b. A session whose head has no GPU and a monitor process
+      (``python -m ray_tpu_torch._private.monitor``, provider ``local``,
+      node type ``gpu`` = {CPU: 2, GPU: 1}, at most one node, idle timeout
+      10 s, drain 1 s): the same pending actor makes the monitor launch a
+      follower host (``as-gpu-*``), whose own runtime-env agent builds the
+      env (a venv base of its own); the actor serves there as in 20a.
+      After the actor is killed the node idles, drains and is terminated
+      within the idle timeout plus a few passes; the instance table and
+      the transitions counter show REQUESTED to TERMINATED; no process or
+      segment of the host is left and the card's memory is back. Prints
+      demand to create_node, to the join, to the actor ready and to the
+      first token, and idle to terminated.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -5717,6 +5743,581 @@ def multihost_phase(torch, rt, card: str, expected: dict, fps10: dict,
     return out
 
 
+# ----------------------------------------------------------------- phase 20
+
+PIP_PKG = "rtpt_probe_pkg"      # 20's local package, installed offline
+ENV_PROBE = ("RTPT_PHASE20_PROBE", "pip-env")
+ENV_WAIT_S = 300.0              # 20: an env actor's boot or serve call
+AS_INTERVAL_S = 0.5             # 20b: the monitor's reconcile interval
+AS_IDLE_S = 10.0                # 20b: idle time before scale-down
+AS_DRAIN_S = 1.0                # 20b: the drain window before terminate
+# 20b: from the actor's kill to the node's termination, at most the idle
+# timeout, the drain window, the agent's orderly stop and a few passes
+AS_TERM_LIMIT_S = AS_IDLE_S + AS_DRAIN_S + 10.0 + 8 * AS_INTERVAL_S
+
+
+def write_probe_pkg(root: str) -> str:
+    """A tiny package that pip installs with no index: setuptools from the
+    machine, no build isolation."""
+    pkg = os.path.join(root, PIP_PKG)
+    os.makedirs(os.path.join(pkg, PIP_PKG), exist_ok=True)
+    with open(os.path.join(pkg, PIP_PKG, "__init__.py"), "w") as f:
+        f.write('MAGIC = "probe-0.1.0"\n')
+    with open(os.path.join(pkg, "pyproject.toml"), "w") as f:
+        f.write('[build-system]\nrequires = ["setuptools"]\n'
+                'build-backend = "setuptools.build_meta"\n'
+                '[project]\nname = "rtpt-probe-pkg"\nversion = "0.1.0"\n')
+    return pkg
+
+
+def pip_env(pkg: str) -> dict:
+    return {"pip": ["--no-index", "--no-build-isolation", pkg],
+            "env_vars": {ENV_PROBE[0]: ENV_PROBE[1]}}
+
+
+def env_server(prepare=None):
+    """20's actor class (``num_gpus=1``, in a pip env): ``where`` reports
+    the interpreter's prefix, the package, the env var, the card and the
+    host; ``serve`` runs ``follower_serve``'s body (Llama-3-8B from the
+    seed, 18a's prefill, phase 4's prompts served greedily) with the
+    engine's ``generate`` wrapped to note the wall time of its first
+    token."""
+
+    class EnvServer:
+        def where(self):
+            if prepare is not None:
+                prepare()
+            import importlib
+
+            import torch
+
+            pkg = importlib.import_module(PIP_PKG)
+            return {"prefix": sys.prefix, "magic": pkg.MAGIC,
+                    "env": os.environ.get(ENV_PROBE[0]),
+                    "device": torch.cuda.get_device_name(),
+                    "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    "torch": torch.__file__, "host": host_id(),
+                    "pid": os.getpid()}
+
+        def serve(self):
+            import torch
+
+            from ray_tpu_torch.llm import LLMEngine
+
+            first = {}
+            plain_generate = LLMEngine.generate
+
+            def generate(eng, token_ids, params=None, *, lora=None):
+                out = []
+                for t in eng.stream(token_ids, params, lora=lora):
+                    first.setdefault("t", time.time())
+                    out.append(t)
+                return out
+
+            LLMEngine.generate = generate
+            t0 = time.time()
+            try:
+                res = follower_serve(prepare)()
+            finally:
+                LLMEngine.generate = plain_generate
+            out = {k: res[k] for k in ("ids", "fingerprints", "launches",
+                                       "prefills", "decode_steps",
+                                       "n_layers", "host", "hashes")}
+            out.update(token=int(torch.argmax(res["logits"])), t_start=t0,
+                       t_first_token=first.get("t"), t_done=time.time())
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+            return out
+
+    return EnvServer
+
+
+def env_get(rt, ref, tag: str, timeout: float = ENV_WAIT_S):
+    """``rt.get(ref)`` that fails the phase at once when a runtime-env
+    agent of the session (the head's or a follower's) reports a failed
+    build: the env's worker exits before it registers, and the actor would
+    otherwise wait for its spawn's whole budget."""
+    import glob
+
+    from ray_tpu_torch._private.protocol import connect_unix
+
+    node = rt._private.api._node
+    deadline = time.monotonic() + timeout
+    while True:
+        ready, _ = rt.wait([ref], num_returns=1, timeout=1.0)
+        if ready:
+            return rt.get(ref, timeout=60)
+        for sock in glob.glob(os.path.join(node.session_dir, "renv_agent.sock")) \
+                + glob.glob(os.path.join(node.session_dir, "agent_*",
+                                         "renv_agent.sock")):
+            try:
+                conn = connect_unix(sock, timeout=5.0)
+                try:
+                    conn.send({"t": "list", "rid": 1})
+                    envs = conn.recv().get("envs") or {}
+                finally:
+                    conn.close()
+            except OSError:
+                continue
+            bad = [e.get("error") for e in envs.values()
+                   if e.get("state") == "failed"]
+            if bad:
+                fail(f"{tag}: the runtime env failed to build: {bad[0]}")
+                raise RuntimeError(bad[0])
+        if time.monotonic() > deadline:
+            fail(f"{tag}: no result {timeout:.0f} s after the call")
+            raise TimeoutError(tag)
+
+
+def check_served(tag: str, res: dict, expected: dict, fps10: dict,
+                 driver_launches: dict) -> None:
+    """20a's and 20b's gates on a served result: phase 10's weights, the
+    in-process token, KV and logits bytes and ids, and the launches of
+    both serving kernels in the actor's worker, none in the driver."""
+    if res["fingerprints"] != fps10:
+        fail(f"{tag}: the actor's weights differ from phase 10's")
+    if res["token"] != expected["token"]:
+        fail(f"{tag}: greedy token {res['token']} != in-process prefill's "
+             f"{expected['token']}")
+    if res["hashes"] != expected["hashes"]:
+        fail(f"{tag}: KV or logits differ from in-process prefill's bytes")
+    if res["ids"] != expected["ids"]:
+        bad = [i for i, (a, b) in enumerate(zip(res["ids"], expected["ids"]))
+               if a != b]
+        fail(f"{tag}: the actor's ids differ from in-process serving at "
+             f"prompts {bad}")
+    L = res["n_layers"]
+    want = {"flash_attention_fwd_bf16": L * (1 + res["prefills"]),
+            "ragged_paged_attention_bf16": L * res["decode_steps"]}
+    for sym, n in res["launches"].items():
+        if n != want.get(sym, 0):
+            fail(f"{tag}: {sym} launched {n} times in the actor's worker, "
+                 f"expected {want.get(sym, 0)}")
+    if any(driver_launches.values()):
+        fail(f"{tag}: launches in the driver: {driver_launches}")
+
+
+def pip_env_20a(torch, rt, card: str, expected: dict, fps10: dict,
+                pkg: str, prepare=None) -> dict:
+    """20a: a pip env on the head's GPU. The venv is built (no index) by
+    the head's runtime-env agent when the first actor boots; that actor
+    serves Llama-3-8B; a second actor of the same spec boots from the
+    cache; a plain task does not see the package."""
+    from ray_tpu_torch._private import runtime_env_pip as rep
+
+    renv = pip_env(pkg)
+    h = rep.pip_hash(renv["pip"])
+    venv = os.path.join(rep.venv_base(), h)
+    lock = os.path.join(rep.venv_base(), f".{h}.lock")
+    marker = os.path.join(venv, ".ready")
+    import shutil
+
+    shutil.rmtree(venv, ignore_errors=True)  # a build, not a leftover
+    Server = rt.remote(num_gpus=1, runtime_env=renv)(env_server(prepare))
+    kernels = loop_kernels()
+    zero(kernels)  # the main path starts here
+    t0 = time.perf_counter()
+    a = Server.remote()
+    where = env_get(rt, a.where.remote(), "20a")
+    out = {"ready_s": time.perf_counter() - t0, "where": where}
+    if not os.path.exists(marker):
+        fail(f"20a: no venv was built at {venv}")
+    out["build_s"] = os.path.getmtime(marker) - os.path.getmtime(lock)
+    res = env_get(rt, a.serve.remote(), "20a")
+    out["driver_launches"] = counts(kernels)
+    rt.kill(a)
+    check_served("20a", res, expected, fps10, out["driver_launches"])
+    out.update({k: res[k] for k in ("launches", "prefills", "decode_steps",
+                                    "host", "token")})
+    out["serve_s"] = res["t_done"] - res["t_start"]
+    out["first_token_s"] = res["t_first_token"] - res["t_start"]
+    built = os.path.getmtime(marker)
+    t1 = time.perf_counter()
+    b = Server.remote()
+    cached = env_get(rt, b.where.remote(), "20a")
+    out["cached_ready_s"] = time.perf_counter() - t1
+    rt.kill(b)
+    out["cached"] = cached
+
+    def plain():
+        import importlib
+
+        try:
+            importlib.import_module(PIP_PKG)
+            return "leaked"
+        except ImportError:
+            return "clean"
+
+    out["plain_task"] = rt.get(rt.remote(plain).remote(), timeout=120)
+    for name, w in (("first", where), ("second", cached)):
+        if os.path.realpath(w["prefix"]) != os.path.realpath(venv):
+            fail(f"20a: the {name} actor ran under {w['prefix']}, not the "
+                 f"venv {venv}")
+        if w["magic"] != "probe-0.1.0" or w["env"] != ENV_PROBE[1]:
+            fail(f"20a: the {name} actor saw {w['magic']!r}, "
+                 f"{ENV_PROBE[0]}={w['env']!r}")
+        if w["device"] != torch.cuda.get_device_name(0):
+            fail(f"20a: the {name} actor's card is {w['device']}")
+        if w["host"] != "host-0":
+            fail(f"20a: the {name} actor ran on {w['host']}")
+    if os.path.getmtime(marker) != built:
+        fail("20a: the second actor rebuilt the venv")
+    if out["plain_task"] != "clean":
+        fail("20a: a plain task imported the pip env's package")
+    print(f"20a llama-3-8b from a pip-env actor on {card}: venv built in "
+          f"{out['build_s']:.3f} s (the actor ready {out['ready_s']:.3f} s "
+          f"after it was made), cached boot {out['cached_ready_s']:.3f} s; "
+          f"first token {out['first_token_s']:.3f} s into serve, serve "
+          f"{out['serve_s']:.3f} s, {len(res['ids'])} prompts token-exact; "
+          f"torch from {where['torch']}", flush=True)
+    return out
+
+
+class InstanceWatch:
+    """20b's view of the GCS's instance table: a thread reads it every
+    20 ms through the driver's worker and notes when each instance was
+    first seen in each state, with its record."""
+
+    def __init__(self, rt):
+        import threading
+
+        self.worker = rt._private.api._get_worker()
+        self.seen: dict = {}      # instance id → [(state, wall time)]
+        self.records: dict = {}   # instance id → last record
+        self.errors: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.wait(0.02):
+            try:
+                recs = self.worker.rpc({"type": "instance_list"})["instances"]
+            except Exception as e:  # noqa: BLE001 — reported by the phase
+                self.errors.append(repr(e))
+                return
+            now = time.time()
+            ids = set()
+            for r in recs:
+                iid = r["instance_id"]
+                ids.add(iid)
+                self.records[iid] = r
+                states = self.seen.setdefault(iid, [])
+                if not states or states[-1][0] != r["state"]:
+                    states.append((r["state"], now))
+            for iid, states in self.seen.items():
+                if iid not in ids and states[-1][0] != "TERMINATED":
+                    states.append(("TERMINATED", now))
+
+    def first(self, state: str):
+        for states in self.seen.values():
+            for s, t in states:
+                if s == state:
+                    return t
+        return None
+
+    def close(self):
+        self._stop.set()
+        self._thread.join(timeout=5)
+
+
+def transitions_counted(rt) -> dict:
+    """``ray_tpu_autoscaler_instance_transitions_total`` in the GCS's
+    snapshot (the monitor flushes its registry after each pass), by
+    (from, to)."""
+    snap = rt._private.api._get_worker().rpc(
+        {"type": "metrics_snapshot"})["metrics"]
+    rec = snap.get("ray_tpu_autoscaler_instance_transitions_total") or {}
+    out: dict = {}
+    for series in (rec.get("series") or {}).values():
+        for tags, value in series:
+            t = dict(tuple(kv) for kv in tags)
+            key = f"{t.get('from_state')}->{t.get('to_state')}"
+            out[key] = out.get(key, 0.0) + value
+    return out
+
+
+def host_processes(host: str) -> list:
+    """Live processes of follower `host`: its agent (``--host-id`` in its
+    argv) and whatever carries its host id in its environment."""
+    from ray_tpu_torch.autoscaler.node_provider import _pid_alive
+
+    tag, env = host.encode(), f"RAY_TPU_TORCH_HOST_ID={host}".encode()
+    out = []
+    for p in os.listdir("/proc"):
+        if not p.isdigit():
+            continue
+        try:
+            with open(f"/proc/{p}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            with open(f"/proc/{p}/environ", "rb") as f:
+                environ = f.read().split(b"\0")
+        except OSError:
+            continue
+        if (tag in argv or env in environ) and _pid_alive(int(p)):
+            out.append(int(p))
+    return out
+
+
+def autoscaled_20b(torch, rt, card: str, expected: dict, fps10: dict,
+                   pkg: str, prepare=None) -> dict:
+    """20b in a fresh session whose head has no GPU: the monitor (provider
+    ``local``, node type ``gpu`` = {CPU: 2, GPU: 1}, at most one) launches
+    a follower host for a pending ``num_gpus=1`` pip-env actor; the
+    follower's own runtime-env agent builds the venv (a base of its own);
+    the actor serves Llama-3-8B there; once it is killed the node idles,
+    drains and is terminated."""
+    import glob
+    import tempfile
+
+    from ray_tpu_torch._private.constants import (EVENT_AUTOSCALER_INSTANCE,
+                                                  temp_root)
+    from ray_tpu_torch._private.protocol import connect_unix
+    from ray_tpu_torch.autoscaler.node_provider import _pid_alive
+    from ray_tpu_torch.util import state
+
+    out = {}
+    rt.init(num_cpus=4, num_gpus=0)
+    node = rt._private.api._node
+    sid = out["session"] = node.session_id
+    work = tempfile.mkdtemp(prefix="phase20b_", dir=node.session_dir)
+    cfg = {"provider": {"type": "local"},
+           "node_types": {"gpu": {"resources": {"CPU": 2, "GPU": 1},
+                                  "max_nodes": 1}},
+           "interval_s": AS_INTERVAL_S, "idle_timeout_s": AS_IDLE_S}
+    cfg_path = os.path.join(work, "autoscaling.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    follower_base = os.path.join(work, "venvs")
+    env = dict(os.environ, RAY_TPU_TORCH_VENV_BASE=follower_base,
+               RAY_TPU_TORCH_DRAIN_GRACE_S=str(AS_DRAIN_S))
+    log = open(os.path.join(node.session_dir, "logs", "monitor.log"), "ab")
+    try:
+        monitor = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch._private.monitor",
+             "--address", node.address, "--autoscaling-config", cfg_path],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=HERE,
+            start_new_session=True)
+    finally:
+        log.close()
+    watch = None
+    try:
+        deadline = time.monotonic() + 60
+        while not node.gcs._autoscaler_conns:
+            if monitor.poll() is not None or time.monotonic() > deadline:
+                fail(f"20b: the monitor never attached (exit "
+                     f"{monitor.poll()}; see monitor.log)")
+            time.sleep(0.05)
+        watch = InstanceWatch(rt)
+        Server = rt.remote(num_gpus=1, runtime_env=pip_env(pkg))(
+            env_server(prepare))
+        kernels = loop_kernels()
+        zero(kernels)  # the main path starts here
+        t_submit = time.time()
+        a = Server.remote()
+        where = env_get(rt, a.where.remote(), "20b")
+        t_ready = time.time()
+        host = where["host"]
+        joined = [e for e in state.list_events(etype="node.join")
+                  if e.get("node") == host]
+        res = env_get(rt, a.serve.remote(), "20b")
+        out["driver_launches"] = counts(kernels)
+        check_served("20b", res, expected, fps10, out["driver_launches"])
+        sock = os.path.join(temp_root(), f"session_{sid}", f"agent_{host}",
+                            "renv_agent.sock")
+        conn = connect_unix(sock, timeout=10.0)
+        try:
+            conn.send({"t": "list", "rid": 1})
+            out["follower_agent_envs"] = conn.recv()["envs"]
+        finally:
+            conn.close()
+        agent_pid = next((r.get("provider_data") or {}).get("pid")
+                         for r in watch.records.values())
+        free_mid = torch.cuda.mem_get_info()[0]
+        t_kill = time.time()
+        rt.kill(a)
+        deadline = time.monotonic() + AS_TERM_LIMIT_S + 30
+        while watch.first("TERMINATED") is None:
+            if time.monotonic() > deadline or watch.errors:
+                fail(f"20b: the node was not terminated "
+                     f"{AS_TERM_LIMIT_S + 30:.0f} s after the kill: "
+                     f"{watch.seen} {watch.errors}")
+            time.sleep(0.05)
+        t_term = watch.first("TERMINATED")
+        deadline = time.monotonic() + 10
+        while transitions_counted(rt).get("TERMINATING->TERMINATED", 0) < 1 \
+                and time.monotonic() < deadline:
+            time.sleep(0.1)
+        out["transitions_counted"] = transitions_counted(rt)
+        out["left_processes"] = host_processes(host)
+        out["left_segments"] = sorted(glob.glob(f"/dev/shm/rtpt_{sid}_{host}*"))
+        out["agent_alive"] = bool(agent_pid) and _pid_alive(int(agent_pid))
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["free_after_term"] = torch.cuda.mem_get_info()[0]
+        out["free_mid"] = free_mid
+        out["node_alive"] = next((n["alive"] for n in rt.nodes()
+                                  if n["node_id"] == host), None)
+        events = state.list_events(etype=EVENT_AUTOSCALER_INSTANCE)
+    finally:
+        if watch is not None:
+            watch.close()
+        monitor.terminate()
+        try:
+            monitor.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(monitor.pid, 9)
+            monitor.wait(timeout=10)
+        rt.shutdown()
+    # each instance_put the GCS took is an event (REQUESTED lasts only
+    # within one pass); the record's deletion is TERMINATED
+    trans = sorted((e["ts"], e.get("from_state"), e.get("to_state"))
+                   for e in events
+                   if e.get("instance_id") in watch.seen)
+    states = [to for _, _, to in trans] + ["TERMINATED"]
+    out["states"] = states
+    at = {}
+    for ts, _, to in trans:
+        at.setdefault(to, ts)
+    t_alloc = at.get("ALLOCATED")
+    t_join = joined[0]["ts"] if joined else None
+    t_idle = at.get("IDLE_TRACKED") or t_kill
+    out.update({
+        "host": host, "where": where,
+        "launches": res["launches"], "prefills": res["prefills"],
+        "decode_steps": res["decode_steps"], "token": res["token"],
+        "demand_to_create_s": t_alloc - t_submit,
+        "demand_to_join_s": (t_join - t_submit) if t_join else None,
+        "demand_to_ready_s": t_ready - t_submit,
+        "demand_to_first_token_s": res["t_first_token"] - t_submit,
+        "kill_to_idle_s": t_idle - t_kill,
+        "idle_to_terminated_s": t_term - t_idle,
+        "kill_to_terminated_s": t_term - t_kill,
+        "monitor_exit": monitor.returncode})
+    if not host.startswith("as-gpu-"):
+        fail(f"20b: the actor ran on {host}, not an autoscaled host")
+    if t_join is None:
+        fail(f"20b: no node.join event for {host}")
+    if os.path.commonpath([os.path.realpath(where["prefix"]),
+                           os.path.realpath(follower_base)]) != \
+            os.path.realpath(follower_base):
+        fail(f"20b: the actor ran under {where['prefix']}, not a venv of "
+             f"the follower's base {follower_base}")
+    envs = out["follower_agent_envs"]
+    if len(envs) != 1 or next(iter(envs.values()))["state"] != "ready":
+        fail(f"20b: the follower's runtime-env agent holds {envs}")
+    if where["env"] != ENV_PROBE[1] or where["magic"] != "probe-0.1.0":
+        fail(f"20b: the actor saw {where['magic']!r}, "
+             f"{ENV_PROBE[0]}={where['env']!r}")
+    want_states = ["REQUESTED", "ALLOCATED", "RUNNING", "IDLE_TRACKED",
+                   "DRAINING", "TERMINATING", "TERMINATED"]
+    if list(dict.fromkeys(states)) != want_states:
+        fail(f"20b: the instance table showed {states}")
+    for key in ("(new)->REQUESTED", "REQUESTED->ALLOCATED",
+                "ALLOCATED->RUNNING", "RUNNING->IDLE_TRACKED",
+                "IDLE_TRACKED->DRAINING", "DRAINING->TERMINATING",
+                "TERMINATING->TERMINATED"):
+        if out["transitions_counted"].get(key, 0) < 1:
+            fail(f"20b: no {key} in the transitions counter: "
+                 f"{out['transitions_counted']}")
+    if out["kill_to_terminated_s"] > AS_TERM_LIMIT_S:
+        fail(f"20b: terminated {out['kill_to_terminated_s']:.1f} s after "
+             f"the kill (limit {AS_TERM_LIMIT_S:.1f})")
+    if out["left_processes"] or out["agent_alive"]:
+        fail(f"20b: processes of {host} left: {out['left_processes']}")
+    if out["left_segments"]:
+        fail(f"20b: segments of {host} left: {out['left_segments']}")
+    if out["node_alive"]:
+        fail(f"20b: {host} is alive in list_nodes after its termination")
+    if out["monitor_exit"] != 0:
+        fail(f"20b: the monitor exited {out['monitor_exit']}")
+    print(f"20b llama-3-8b on an autoscaled host ({host}) on {card}: "
+          f"demand to create_node {out['demand_to_create_s']:.3f} s",
+          flush=True)
+    print(f"20b demand to the node joining "
+          f"{out['demand_to_join_s']:.3f} s", flush=True)
+    print(f"20b demand to the actor ready "
+          f"{out['demand_to_ready_s']:.3f} s", flush=True)
+    print(f"20b demand to the first token "
+          f"{out['demand_to_first_token_s']:.3f} s ({len(res['ids'])} "
+          f"prompts token-exact)", flush=True)
+    print(f"20b idle to terminated {out['idle_to_terminated_s']:.3f} s "
+          f"(kill to idle {out['kill_to_idle_s']:.3f} s; states "
+          f"{' > '.join(states)})", flush=True)
+    return out
+
+
+def autoscaler_phase(torch, rt, card: str, expected: dict, fps10: dict,
+                     prepare=None) -> dict:
+    """Phase 20: 20a in a fresh session with one GPU, 20b in another with
+    none. After each, no segment of its session is left; after both, the
+    card's free memory is back within HOST_MEM_SLACK."""
+    import glob
+    import tempfile
+
+    from ray_tpu_torch._private.ray_config import RayConfig
+
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    gc.collect()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t_phase = time.perf_counter()
+    saved = {k: os.environ.get(k) for k in HOST_ENV}
+    os.environ.update(HOST_ENV)
+    RayConfig.reset()
+    out = {}
+    pkg = write_probe_pkg(tempfile.mkdtemp(prefix="phase20_pkg_"))
+    try:
+        t0 = time.perf_counter()
+        info = rt.init(num_cpus=8, num_gpus=1)
+        sid = info["session_id"]
+        try:
+            out["20a"] = pip_env_20a(torch, rt, card, expected, fps10, pkg,
+                                     prepare)
+        finally:
+            rt.shutdown()
+        left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+        if left:
+            fail(f"20a: shm segments of the session left: {sorted(left)}")
+        out["20a"]["sub_phase_s"] = time.perf_counter() - t0
+        print(f"20a took {out['20a']['sub_phase_s']:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out["20b"] = autoscaled_20b(torch, rt, card, expected, fps10, pkg,
+                                    prepare)
+        left = glob.glob(f"/dev/shm/rtpt_{out['20b']['session']}*")
+        if left:
+            fail(f"20b: shm segments of the session left: {sorted(left)}")
+        out["20b"]["sub_phase_s"] = time.perf_counter() - t0
+        print(f"20b took {out['20b']['sub_phase_s']:.1f} s", flush=True)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig.reset()
+    gc.collect()
+    torch.cuda.empty_cache()
+    deadline = time.monotonic() + 30
+    free = torch.cuda.mem_get_info()[0]
+    while free0 - free > HOST_MEM_SLACK and time.monotonic() < deadline:
+        time.sleep(0.5)
+        free = torch.cuda.mem_get_info()[0]
+    out["free_before"], out["free_after"] = free0, free
+    if free0 - free > HOST_MEM_SLACK:
+        fail(f"20: the card has {(free0 - free) / 2**30:.3f} GiB less free "
+             f"memory after the phase")
+    if free0 - out["20b"]["free_after_term"] > HOST_MEM_SLACK:
+        fail(f"20b: the card has {(free0 - out['20b']['free_after_term']) / 2**30:.3f} "
+             f"GiB less free memory after the node's termination")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"runtime envs and the autoscaler on {card}: phase 20 took "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -6132,6 +6733,7 @@ def main() -> int:
                 "train_zero_rank0": {}, "tune_trial0": {}, "tune_trial1": {},
                 "device_producer": {}, "dag_engine": {},
                 "follower_engine": {}, "follower_retry": {},
+                "pip_env_actor": {}, "autoscaled_actor": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -6265,6 +6867,12 @@ def main() -> int:
         launches["follower_engine"] = hosted["19a"]["launches"]
         launches["follower_retry"] = hosted["19c"]["launches"]
         print(json.dumps({"card": card, "multihost": hosted}), flush=True)
+        # phase 20: runtime envs and the autoscaler
+        scaled = autoscaler_phase(torch, ray_tpu_torch, card, expected18,
+                                  fps10)
+        launches["pip_env_actor"] = scaled["20a"]["launches"]
+        launches["autoscaled_actor"] = scaled["20b"]["launches"]
+        print(json.dumps({"card": card, "autoscaler": scaled}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

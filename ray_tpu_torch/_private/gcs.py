@@ -1172,15 +1172,43 @@ class GcsServer:
                 self._note_oom_kill(pid, why,
                                     host_id=msg.get("host_id") or HEAD_HOST)
             conn.send({"rid": msg["rid"], "pid": pid})
-        elif t in ("autoscaler_attach", "instance_put", "instance_delete",
-                   "instance_list"):
-            # the autoscaler monitor and its instance table are not ported:
-            # no monitor attaches, so infeasible demand fails fast
-            from ray_tpu_torch.exceptions import _not_ported
-
-            conn.send({"rid": msg["rid"], "ok": False,
-                       "error": str(_not_ported(
-                           f"the autoscaler monitor ({t})", "item 19"))})
+        elif t == "autoscaler_attach":
+            with self.lock:
+                self._autoscaler_conns.add(id(conn))
+            conn.send({"rid": msg["rid"], "ok": True})
+        elif t == "instance_put":
+            # autoscaler instance state machine write-through (reference: v2
+            # instance_storage) — the reply IS the durability ack: the
+            # reconciler orders provider side-effects after it, so persist
+            # (memory + sqlite) strictly before sending
+            rec = dict(msg["instance"])
+            iid = str(rec["instance_id"])
+            with self.lock:
+                prev = self.autoscaler_instances.get(iid)
+                self.autoscaler_instances[iid] = rec
+            if self.storage is not None:
+                self.storage.put("instances", iid, rec)
+            old_state = (prev or {}).get("state")
+            new_state = rec.get("state")
+            if new_state != old_state:
+                self._emit_event(
+                    _const.EVENT_AUTOSCALER_INSTANCE,
+                    node=str(rec.get("node_id") or ""),
+                    message=f"instance {iid}: "
+                            f"{old_state or 'NEW'} -> {new_state}",
+                    instance_id=iid, from_state=old_state, to_state=new_state)
+            conn.send({"rid": msg["rid"], "ok": True})
+        elif t == "instance_delete":
+            iid = str(msg["instance_id"])
+            with self.lock:
+                self.autoscaler_instances.pop(iid, None)
+            if self.storage is not None:
+                self.storage.delete("instances", iid)
+            conn.send({"rid": msg["rid"], "ok": True})
+        elif t == "instance_list":
+            with self.lock:
+                recs = [dict(r) for r in self.autoscaler_instances.values()]
+            conn.send({"rid": msg["rid"], "instances": recs})
         elif t == "serve_put":
             # serve control-plane write-through (reference: serve controller
             # checkpoints before side effects) — same contract as
@@ -1622,6 +1650,13 @@ class GcsServer:
                     "num_nodes": sum(1 for n in self.nodes.values() if n.alive),
                     "node_ids": [n.node_id for n in self.nodes.values()
                                  if n.alive],
+                    # nodes where something holds resources (a task, an
+                    # actor, a placement group): the autoscaler does not
+                    # idle-terminate them (a port addition)
+                    "busy_node_ids": [
+                        n.node_id for n in self.nodes.values()
+                        if n.alive and any(n.available.get(k, 0) < v
+                                           for k, v in n.total.items())],
                 }
             conn.send({"rid": msg["rid"], "demand": state})
         elif t == "worker_stacks":
@@ -2829,6 +2864,14 @@ class GcsServer:
         spawn_plan: list[tuple[str, list]] = []
         now = time.monotonic()
         with self.lock:
+            if rh and rh not in self.runtime_envs:
+                # the env's body reaches the GCS with its first spec: a
+                # worker spawned before that would boot without it (no
+                # venv, no env vars), register under no env and, with a
+                # GPU grant, be refused while its GPUs stay booked for the
+                # spawn's whole budget. The caller's spec takes the GCS
+                # path instead, which records the env and spawns for it.
+                return
             n_workers = sum(1 for w in self.workers.values()
                             if w.kind == "worker" and not w.dead)
             spawning = sum(len(dq) for dq in self._spawn_pending.values())

@@ -3,9 +3,9 @@
 The port's copy of ray_tpu/_private/node.py: the session lives under
 <TMPDIR>/ray_tpu_torch (constants.temp_root), a worker granted whole GPUs
 sees exactly those through CUDA_VISIBLE_DEVICES, and a worker with none is
-hidden from every card. Workers boot ray_tpu_torch._private.worker_main.
-There is no per-host runtime-env agent: pip/conda runtime envs are not
-ported (ROADMAP.md Queue 1 item 18).
+hidden from every card. Workers boot ray_tpu_torch._private.worker_main,
+or its worker_boot shim when their runtime env needs a pip venv or a conda
+prefix, which the host's runtime-env agent builds.
 
 (reference: python/ray/_private/node.py:47 starts gcs/raylet/log-monitor
 subprocesses; here the GCS runs as an in-process thread and workers are
@@ -57,6 +57,12 @@ class Node:
 
         self._procs: list[subprocess.Popen] = []
         self._spawn_lock = threading.Lock()
+        # per-host runtime-env agent process, started on first pip/conda
+        # worker spawn (reference: _private/runtime_env/agent/ — a separate
+        # process builds envs, deduplicating concurrent requests)
+        from ray_tpu_torch._private.runtime_env_agent import AgentHandle
+
+        self._renv_agent = AgentHandle(self.session_dir)
         self.gcs = GcsServer(
             self.socket_path,
             total_resources=total,
@@ -99,7 +105,8 @@ class Node:
         worker owns those GPUs via CUDA_VISIBLE_DEVICES) or None (a CPU
         worker, hidden from the cards under worker_platform="cpu").
         `runtime_env` is a normalized runtime env baked into the processes
-        (env_vars at spawn; working_dir/py_modules materialized by
+        (env_vars at spawn; pip/conda envs built through the agent by the
+        worker_boot shim; working_dir/py_modules materialized by
         worker_main)."""
         import json as _json
 
@@ -110,11 +117,20 @@ class Node:
         if runtime_env:
             base["RAY_TPU_TORCH_RUNTIME_ENV"] = _json.dumps(runtime_env, sort_keys=True)
             base.update(runtime_env.get("env_vars") or {})
+            if runtime_env.get("pip") or runtime_env.get("conda"):
+                # env-bearing workers resolve their interpreter through the
+                # per-host runtime-env agent (deduped builds, fail-fast);
+                # the boot shim falls back to a local build if it's gone
+                try:
+                    base["RAY_TPU_TORCH_RENV_AGENT_SOCK"] = \
+                        self._renv_agent.ensure()
+                except Exception:
+                    pass
         else:
             base.pop("RAY_TPU_TORCH_RUNTIME_ENV", None)
         base[TEMP_ROOT_ENV] = temp_root()
         from ray_tpu_torch._private.runtime_env_container import (
-            build_worker_argv)
+            boot_entry, build_worker_argv)
 
         with self._spawn_lock:
             for i in range(n):
@@ -129,7 +145,11 @@ class Node:
                     # host env may already name the GPUs, and two processes
                     # must not contend for one card's memory
                     accelerators.hide_gpus(env)
-                argv = build_worker_argv(runtime_env)
+                # pip/conda envs boot through a shim that builds the env IN
+                # the worker process, then re-execs under its interpreter —
+                # the scheduler thread never waits on pip
+                argv = build_worker_argv(runtime_env, env, self.session_dir,
+                                         boot_entry(runtime_env))
                 log = open(os.path.join(self.session_dir, "logs", f"worker-{len(self._procs)}.log"), "ab")
                 try:
                     p = subprocess.Popen(
@@ -166,6 +186,7 @@ class Node:
         self.object_server.stop()
         self.gcs.stop()
         drain_procs(self._procs)
+        self._renv_agent.stop()
         # backend-aware teardown: the arena backend must also unlink its
         # /dev/shm segment and spill dir, not just per-object files
         make_object_store(self.session_id).cleanup_session()

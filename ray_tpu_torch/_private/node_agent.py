@@ -14,9 +14,11 @@ pool worker_pool.h:280 + object manager object_manager.h:128 + log monitor
 _private/log_monitor.py, collapsed into one agent process).
 
 The agent never imports torch: it needs no tensor and no CUDA context, and
-a process pays seconds for either. pip/conda runtime envs and the per-host
-runtime-env agent that builds them are not ported (ROADMAP.md Queue 1
-item 18).
+a process pays seconds for either. pip/conda envs of its workers are built
+by the host's own runtime-env agent (a subprocess started on the first
+such spawn, in the agent's process group). SIGTERM is a drain notice;
+SIGINT stops the agent in order (workers, store segments, the runtime-env
+agent), which is how the autoscaler's LocalNodeProvider terminates it.
 """
 
 from __future__ import annotations
@@ -35,7 +37,6 @@ from ray_tpu_torch._private.object_store import make_object_store
 from ray_tpu_torch._private.object_transfer import make_object_server
 from ray_tpu_torch._private.procutil import drain_procs
 from ray_tpu_torch._private.protocol import ConnectionClosed, connect_address
-from ray_tpu_torch.exceptions import _not_ported
 
 
 class NodeAgent:
@@ -70,6 +71,9 @@ class NodeAgent:
         total, labels = accelerators.detect_host_resources(
             num_cpus, num_gpus, resources, labels)
 
+        from ray_tpu_torch._private.runtime_env_agent import AgentHandle
+
+        self._renv_agent = AgentHandle(self.session_dir)
         self._procs: list[subprocess.Popen] = []
         self._rpc({
             "type": "register_host",
@@ -268,7 +272,7 @@ class NodeAgent:
 
         from ray_tpu_torch._private.ray_config import RayConfig
         from ray_tpu_torch._private.runtime_env_container import (
-            build_worker_argv)
+            boot_entry, build_worker_argv)
 
         base = dict(os.environ)
         base["RAY_TPU_TORCH_ADDRESS"] = self.gcs_address
@@ -278,11 +282,15 @@ class NodeAgent:
         base["RAY_TPU_TORCH_STORE_NS"] = self.store_ns
         base[TEMP_ROOT_ENV] = temp_root()
         if runtime_env:
-            if runtime_env.get("pip") or runtime_env.get("conda"):
-                raise _not_ported("pip/conda runtime envs on a follower "
-                                  "host (the runtime-env agent)", "item 18")
             base["RAY_TPU_TORCH_RUNTIME_ENV"] = _json.dumps(runtime_env, sort_keys=True)
             base.update(runtime_env.get("env_vars") or {})
+            if runtime_env.get("pip") or runtime_env.get("conda"):
+                # this host's own runtime-env agent builds the env
+                try:
+                    base["RAY_TPU_TORCH_RENV_AGENT_SOCK"] = \
+                        self._renv_agent.ensure()
+                except Exception:
+                    pass
         else:
             base.pop("RAY_TPU_TORCH_RUNTIME_ENV", None)
         for gpus in assignments:
@@ -293,7 +301,8 @@ class NodeAgent:
                 accelerators.apply_gpu_env(env, gpus)
             elif RayConfig.get("worker_platform") == "cpu":
                 accelerators.hide_gpus(env)
-            argv = build_worker_argv(runtime_env)
+            argv = build_worker_argv(runtime_env, env, self.session_dir,
+                                     boot_entry(runtime_env))
             log = open(os.path.join(self.session_dir, "logs",
                                     f"worker-{len(self._procs)}.log"), "ab")
             try:
@@ -308,6 +317,7 @@ class NodeAgent:
     def shutdown(self):
         if self.mem_monitor is not None:
             self.mem_monitor.stop()
+        self._renv_agent.stop()
         self.log_monitor.stop()
         self.obj_server.stop()
         drain_procs(self._procs)
@@ -340,9 +350,15 @@ def main(argv=None):
                          daemon=True, name="agent-self-drain").start()
 
     signal.signal(signal.SIGTERM, _on_sigterm)
+    # SIGINT is the orderly stop even where the spawner ignored it (a
+    # background job inherits SIG_IGN): serve_forever's finally shuts down
+    signal.signal(signal.SIGINT, signal.default_int_handler)
     print(f"node agent {agent.host_id} joined {args.address} "
           f"(objects at {agent.obj_server.address})", flush=True)
-    agent.serve_forever()
+    try:
+        agent.serve_forever()
+    except KeyboardInterrupt:
+        print(f"node agent {agent.host_id}: stopped (SIGINT)", flush=True)
 
 
 if __name__ == "__main__":

@@ -72,13 +72,21 @@ def _scores(q, k, *, causal: bool, scale: float):
 
 def flash_attention_forward_plain(q, k, v, *, causal: bool, scale: float):
     """Plain version: q [B,H,T,D], k/v [B,Hkv,T,D] → (o [B,H,T,D] in q's
-    dtype, lse [B,H,T,1] f32). Computed in f32 with a dense score tensor."""
+    dtype, lse [B,H,T,1] f32). Computed in f32 with a dense score tensor,
+    its softmax in float64 on the CPU."""
     k, v = _repeat_heads(q, k, v)
     s = _scores(q, k, causal=causal, scale=scale)
+    if s.device.type == "cpu":
+        # on the CPU, where this version is the op itself, the softmax's
+        # exponentials are taken in float64: a process's first f32
+        # torch.exp there can run a kernel off by up to 1.5e-4 relative
+        # (seen in fresh worker processes; later calls are exact), which
+        # moved an actor's output 9.2e-5 from the Pallas kernel's
+        s = s.double()
     lse = torch.logsumexp(s, dim=-1, keepdim=True)
-    p = torch.exp(s - lse)
+    p = torch.exp(s - lse).float()
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
-    return o.to(q.dtype), lse
+    return o.to(q.dtype), lse.float()
 
 
 def backward_delta(o, do):

@@ -10,9 +10,10 @@ The port's copy of ray_tpu/runtime_env.py: the driver normalizes + hashes
 the env, packages directories into zips stored in the GCS KV
 (content-addressed — the URI cache), and the scheduler spawns workers whose
 process env matches the task's runtime-env hash; worker_main materializes
-the env (extract zips, set cwd/sys.path) before executing anything. The
-pip/uv, conda and container (``image_uri``) envs are not ported yet
-(ROADMAP.md Queue 1 item 18): ``package`` refuses them.
+the env (extract zips, set cwd/sys.path) before executing anything. pip
+(and its ``uv`` spelling), conda and container (``image_uri``) envs are
+normalized here and built on the worker's host (the worker_boot shim and
+the per-host runtime-env agent).
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ import zipfile
 from typing import Any, Optional
 
 from ray_tpu_torch._private.constants import temp_root
-from ray_tpu_torch.exceptions import _not_ported
 
 _PKG_PREFIX = "renv_pkg:"  # GCS KV key prefix for packaged zips
 MAX_PACKAGE_BYTES = 512 * 1024 * 1024
@@ -77,9 +77,28 @@ def package(runtime_env: dict, kv_put, kv_get) -> dict:
     mods = env.pop("py_modules", None)
     if mods:
         out["py_modules"] = [_upload_dir(m, kv_put, kv_get) for m in mods]
-    for key in ("pip", "uv", "conda", "image_uri"):
-        if env.get(key) is not None:
-            raise _not_ported(f"runtime_env[{key!r}]", "item 18")
+    pip_spec = env.pop("pip", None)
+    if pip_spec is None:
+        pip_spec = env.pop("uv", None)  # uv schema: same requirement lines
+    if pip_spec:
+        from ray_tpu_torch._private.runtime_env_pip import normalize_pip
+
+        out["pip"] = normalize_pip(pip_spec)
+    conda_spec = env.pop("conda", None)
+    if conda_spec is not None:
+        if pip_spec:
+            raise ValueError(
+                "runtime_env cannot set both 'pip' and 'conda' (the conda "
+                "spec's dependencies list takes pip sub-entries instead)")
+        from ray_tpu_torch._private.runtime_env_conda import normalize_conda
+
+        out["conda"] = normalize_conda(conda_spec)
+    image = env.pop("image_uri", None)
+    if image is not None:
+        from ray_tpu_torch._private.runtime_env_container import (
+            normalize_image_uri)
+
+        out["image_uri"] = normalize_image_uri(image)
     if env:
         raise ValueError(f"unsupported runtime_env keys: {sorted(env)} "
                          "(supported: env_vars, working_dir, py_modules, "

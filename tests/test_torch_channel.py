@@ -336,6 +336,19 @@ _ALLOWED = {
         ("experimental/channel/channel.py", "Channel.close"),
         ("experimental/device_objects.py", "export_to_store"),
         ("experimental/device_objects.py", "free_device_tensors"))),
+    # runtime envs and the autoscaler (baseline.txt's runtime_env_agent,
+    # node.py, node_agent.py and autoscaler/ entries): the agent's one-time
+    # boot poll under its lock, the spawners' best-effort agent socket, the
+    # reconciler's telemetry, post-stop cleanup and teardown guards
+    ("blocking-under-lock", "_private/runtime_env_agent.py",
+     "AgentHandle.ensure"),
+    ("silent-swallow", "_private/node.py", "Node._spawn_workers"),
+    ("silent-swallow", "_private/node_agent.py", "NodeAgent._spawn_workers"),
+    *(("silent-swallow", "autoscaler/autoscaler.py", f) for f in (
+        "Autoscaler._flush_metrics", "Autoscaler._launch",
+        "Autoscaler.stop")),
+    ("silent-swallow", "autoscaler/instance_manager.py",
+     "_count_transition"),
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
@@ -350,7 +363,11 @@ _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "object_store", "object_transfer", "pg_policy", "poll",
             "procutil", "protocol", "pubsub", "ray_config",
             "runtime_env_container", "serialization", "shm_arena",
-            "task_events", "task_spec", "worker", "worker_main")
+            "task_events", "task_spec", "worker", "worker_main",
+            "runtime_env_pip", "runtime_env_conda", "runtime_env_agent",
+            "worker_boot", "monitor")
+_AUTOSCALER = ("__init__", "autoscaler", "instance_manager", "kuberay",
+               "node_provider")
 _SERVE = ("__init__", "api", "batching", "config", "controller",
           "deployment", "gcs_state", "handle", "http_server", "multiplex",
           "proxy", "proxy_plane", "replica", "request_context",
@@ -380,7 +397,8 @@ _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
                 "util/collective/quantization.py", "cluster_utils.py",
                 "dag/__init__.py", "dag/dag_node.py",
                 "dag/channel_execution.py", "experimental/device_objects.py",
-                "experimental/channel/__init__.py")
+                "experimental/channel/__init__.py") + tuple(
+                f"autoscaler/{m}.py" for m in _AUTOSCALER)
 
 
 def test_graft_check_invariants_hold_on_the_ports_host_modules():

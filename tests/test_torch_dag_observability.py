@@ -6,8 +6,7 @@ Unit-level scenarios run in this process, one package after the other
 (`pair`); cluster-level ones on one module-scoped session per package with
 span sampling every 2nd step and tracing on, set before `init`. Both sides
 must agree. Left out: `test_cli_dag_list_and_show` (the CLI, ROADMAP Queue
-1 item 20) and `test_autoscaler_transition_and_reconcile_metrics` (the
-autoscaler, item 19); the end-to-end test reads the GCS's snapshot through
+1 item 20); the end-to-end test reads the GCS's snapshot through
 `to_prometheus` where the reference reads the dashboard's `/metrics` and
 `/api/dags` (item 20).
 """
@@ -268,6 +267,48 @@ def test_storage_transfer_metrics(tmp_path, monkeypatch):
 
 
 # ------------------------------------------------------------- cluster level
+
+
+def _scn_autoscaler_metrics(tmp_path, rt):
+    """Transition counters + reconcile histogram + pending/running gauges,
+    riding the FakeFileNodeProvider (file-backed cloud, no processes)."""
+    autoscaler = sub(rt, "autoscaler")
+    met = sub(rt, "util.metrics")
+    rt.shutdown()
+    rt.init(num_cpus=2, num_workers=1, max_workers=4)
+    met.clear_registry()
+    try:
+        provider = autoscaler.FakeFileNodeProvider(
+            str(tmp_path / f"cloud_{rt.__name__}.json"))
+        a = autoscaler.Autoscaler(
+            f"unix:{sub(rt, '_private.api')._node.socket_path}", provider,
+            [autoscaler.NodeType("warm", {"CPU": 2}, min_nodes=1,
+                                 max_nodes=2)])
+        try:
+            a.reconcile_once()
+            trans = {tuple(sorted(map(tuple, tags))): v
+                     for tags, v in _series(
+                         rt, "ray_tpu_autoscaler_instance_transitions_total")}
+            key_new = (("from_state", "(new)"), ("node_type", "warm"),
+                       ("to_state", "REQUESTED"))
+            key_alloc = (("from_state", "REQUESTED"), ("node_type", "warm"),
+                         ("to_state", "ALLOCATED"))
+            rec = _series(rt, "ray_tpu_autoscaler_reconcile_seconds")
+            pend = {dict(map(tuple, tags))["node_type"]: v
+                    for tags, v in _series(
+                        rt, "ray_tpu_autoscaler_pending_nodes")}
+            return (trans.get(key_new), trans.get(key_alloc),
+                    bool(rec) and rec[0][1]["count"] >= 1, pend.get("warm"))
+        finally:
+            a.stop()
+    finally:
+        met.clear_registry()
+        rt.shutdown()
+
+
+def test_autoscaler_transition_and_reconcile_metrics(tmp_path):
+    # ALLOCATED, never joins: one pending node
+    pair(partial(_scn_autoscaler_metrics, tmp_path), (1.0, 1.0, True, 1.0))
 
 
 @pytest.fixture(scope="module")

@@ -253,6 +253,15 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch._private.log_monitor\n"
         "import ray_tpu_torch._private.memory_monitor\n"
         "import ray_tpu_torch._private.runtime_env_container\n"
+        "import ray_tpu_torch._private.runtime_env_pip\n"
+        "import ray_tpu_torch._private.runtime_env_conda\n"
+        "import ray_tpu_torch._private.runtime_env_agent\n"
+        "import ray_tpu_torch._private.worker_boot\n"
+        "import ray_tpu_torch._private.monitor\n"
+        "import ray_tpu_torch.autoscaler, ray_tpu_torch.autoscaler.autoscaler\n"
+        "import ray_tpu_torch.autoscaler.instance_manager\n"
+        "import ray_tpu_torch.autoscaler.node_provider\n"
+        "import ray_tpu_torch.autoscaler.kuberay\n"
         "import ray_tpu_torch.remote_function, ray_tpu_torch.actor\n"
         "import ray_tpu_torch.runtime_env, ray_tpu_torch.cross_lang\n"
         "import ray_tpu_torch.util.placement_group\n"

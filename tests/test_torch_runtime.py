@@ -923,8 +923,7 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
     """Each stack the runtime core leaves out raises NotImplementedError
     naming its ROADMAP.md item, at the point a user reaches it."""
     import ray_tpu_torch as rt
-    from ray_tpu_torch._private import (object_transfer,
-                                        runtime_env_container, worker)
+    from ray_tpu_torch._private import object_transfer, worker
 
     @rt.remote
     def f():
@@ -932,15 +931,12 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
 
     w = worker._global_worker or rt._private.api._get_worker()
     cases = {
-        "item 18": lambda: f.options(runtime_env={"pip": ["x"]}).remote(),
         "item 22": lambda: rt.cpp_function("add"),
     }
     for item, call in cases.items():
         msg = _refused(call)
         assert msg and f"ROADMAP.md Queue 1 {item}" in msg, (item, msg)
     for item, call in {
-        "item 18": lambda: runtime_env_container.build_worker_argv(
-            {"image_uri": "img"}),
         "item 22": lambda: rt.start_cpp_worker(),
     }.items():
         msg = _refused(call)
@@ -1051,13 +1047,3 @@ def test_follower_host_registration_is_refused(pkgs):
             break
         time.sleep(0.05)
     assert gone and not gcs.nodes["host-reg"].alive
-
-
-def test_autoscaler_attach_is_refused(pkgs):
-    """The GCS refuses an autoscaler monitor (ROADMAP.md Queue 1 item 19):
-    the port has no monitor to attach."""
-    import ray_tpu_torch as rt
-
-    w = rt._private.api._get_worker()
-    reply = w.rpc({"type": "autoscaler_attach"})
-    assert "ROADMAP.md Queue 1 item 19" in str(reply.get("error"))
