@@ -451,6 +451,28 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       layers, bf16, paged; both serving kernels launched, no backward)
       and ``serve_bench``; every record printed; their artifacts under
       the phase's temp root and no JSON file of the checkout changed.
+22. RLlib and the C++ worker (after phase 21, before phase 11), in a fresh
+   session (16 CPUs, 2 pre-started workers); the runners are CPU actors,
+   the learners on the card by default. chip_smoke's launch counts are
+   zeroed before 22a and 22b and must be 0 after each (``rl_ppo``,
+   ``rl_dqn``: RLlib reaches none of the four kernels).
+   a. PPO on CartPole-v1 (tests/test_rllib.py's config: 2 runners x 8
+      envs, fragment 64, lr 1e-3, minibatch 256, 4 epochs, seed 0), 12
+      iterations: the learner's params on the card, the mean return's
+      last > first + 15, total_loss finite. Prints each runner's seconds
+      to ready, each iteration's seconds split into sample and learn, and
+      the update's CUDA-event mean and median. Then one PPO update from
+      the trained params and Adam state on a fresh 256-row minibatch, on
+      the card and on the CPU: the worst leaf's max |card - cpu| over its
+      max |cpu| within 1e-5.
+   b. DQN on CartPole-v1 (tests/test_rllib_dqn.py's config), at most 40
+      iterations: online and target params on the card, best mean return
+      >= 60, updates made; prints iterations to the threshold and
+      updates/s.
+   c. 22a's PPO saved and restored into a fresh PPO on the card: equal
+      params and equal greedy actions on 1,024 seeded observations.
+   d. The port's C++ worker built by g++ from ``csrc/cpp_worker.cc`` and
+      joined to the session: ``add``, ``concat`` and ``vec_sum`` answered.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -6884,6 +6906,386 @@ def job_phase(torch, kernels, card: str, expected: list[dict], fps10: dict,
     return out
 
 
+# ----------------------------------------------------------------- phase 22
+
+RL_SESSION = {"num_cpus": 16, "num_workers": 2, "max_workers": 8}
+PPO_ITERS = 12                 # 22a: tests/test_rllib.py's PPO bar
+PPO_GAIN = 15.0                # 22a: last > first + 15
+DQN_MAX_ITERS = 40             # 22b: tests/test_rllib_dqn.py's DQN bar
+DQN_BEST = 60.0                # 22b: best mean return >= 60
+# 22a: one PPO update from the same params, Adam state and 256-row
+# minibatch on the card and on the CPU, f32 with TF32 off: the worst leaf's
+# max |card - cpu| over its max |cpu| within this
+RL_PARITY_RTOL = 1e-5
+RL_CHECK_OBS = 1024            # 22c: seeded observations for greedy actions
+CPP_WAIT_S = 60.0              # 22d: the C++ worker's registration
+
+
+def ppo_config(rt_rllib):
+    """tests/test_rllib.py's PPO config; the learner where None puts it."""
+    return (rt_rllib.PPOConfig().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                         rollout_fragment_length=64)
+            .training(lr=1e-3, minibatch_size=256, num_epochs=4)
+            .debugging(seed=SEED))
+
+
+def runners_ready_s(rt, runners, t0: float) -> list[float]:
+    """Seconds from `t0` until each runner answers a ping, in runner order."""
+    refs = [r.ping.remote() for r in runners]
+    ready = {}
+    pending = list(refs)
+    while pending:
+        done, pending = rt.wait(pending, num_returns=1, timeout=300)
+        if not done:
+            fail("22: env runners not ready after 300 s")
+        for ref in done:
+            rt.get(ref)
+            ready[refs.index(ref)] = time.perf_counter() - t0
+    return [ready[i] for i in range(len(refs))]
+
+
+class _Timed:
+    """Wraps a callable; sums its host seconds per iteration."""
+
+    def __init__(self, fn):
+        self.fn, self.s = fn, 0.0
+
+    def __call__(self, *a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return self.fn(*a, **kw)
+        finally:
+            self.s += time.perf_counter() - t0
+
+
+class _Evented:
+    """Wraps an update function: a CUDA event pair around each call, read
+    after the iteration (the mean update's device-side span)."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.pairs = torch, fn, []
+
+    def __call__(self, *a, **kw):
+        ev = self.torch.cuda.Event
+        start, end = ev(enable_timing=True), ev(enable_timing=True)
+        start.record()
+        out = self.fn(*a, **kw)
+        end.record()
+        self.pairs.append((start, end))
+        return out
+
+    def ms(self) -> list[float]:
+        self.torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.pairs]
+
+
+def tree_rel_err(torch, a: dict, b: dict) -> tuple[float, float]:
+    """(worst leaf's max|a-b| / max|b|, worst max|a-b|) of two param trees
+    (b the reference)."""
+    from ray_tpu_torch.rllib.learner import leaves
+
+    rel = absmax = 0.0
+    for x, y in zip(leaves(a), leaves(b)):
+        d = (x.detach().cpu() - y.detach().cpu()).abs().max().item()
+        rel = max(rel, d / max(y.detach().abs().max().item(), 1e-30))
+        absmax = max(absmax, d)
+    return rel, absmax
+
+
+def ppo_parity(torch, algo) -> dict:
+    """One PPO update from the trained learner's params and Adam state on a
+    fresh 256-row minibatch of its runners' data, on the card and on the
+    CPU."""
+    import copy
+
+    from ray_tpu_torch.rllib import learner as learner_mod
+    from ray_tpu_torch.rllib.algorithms.ppo import _train_batch
+
+    cfg = algo.config
+    samples = algo.runner_group.sample(algo.learner.get_weights_blob(),
+                                       cfg.rollout_fragment_length)
+    batch = _train_batch(samples, torch.device("cpu"), cfg.gamma, cfg.lam)
+    mb = {k: v[:cfg.minibatch_size] for k, v in batch.items()}
+    out = {}
+    learners = {}
+    obs_dim, n_act = algo.learner.params["layers"]["0"]["w"].shape[0], \
+        algo.learner.params["pi"]["w"].shape[1]
+    # a deep copy: load_state_dict keeps a state tensor that is already on
+    # the param's device, and the first update would move it for the second
+    state = copy.deepcopy(algo.learner.optimizer.state_dict())
+    for dev in ("cuda", "cpu"):
+        lrn = learner_mod.Learner(obs_dim, n_act, lr=cfg.lr,
+                                  hidden=cfg.model_hidden,
+                                  clip=cfg.clip_param,
+                                  vf_coef=cfg.vf_loss_coeff,
+                                  ent_coef=cfg.entropy_coeff, device=dev)
+        with torch.no_grad():
+            for dst, src in zip(learner_mod.leaves(lrn.params),
+                                learner_mod.leaves(algo.learner.params)):
+                dst.copy_(src)
+        lrn.optimizer.load_state_dict(copy.deepcopy(state))
+        out[f"{dev}_metrics"] = learner_mod.floats(
+            lrn._update(lrn.params, learner_mod.batch_to(mb, lrn.device)))
+        learners[dev] = lrn
+    rel, absmax = tree_rel_err(torch, learners["cuda"].params,
+                               learners["cpu"].params)
+    moved, _ = tree_rel_err(torch, learners["cpu"].params,
+                            algo.learner.params)
+    out.update(rows=int(mb["obs"].shape[0]), max_rel_err=rel,
+               max_abs_err=absmax, step_rel_change=moved,
+               rtol=RL_PARITY_RTOL)
+    if not moved > 0:
+        fail("22a: the parity update moved no param")
+    if not rel <= RL_PARITY_RTOL:
+        fail(f"22a: one PPO update on the card and on the CPU differ by "
+             f"{rel:.3g} relative (> {RL_PARITY_RTOL}; max abs {absmax:.3g})")
+    return out
+
+
+def ppo_22a(torch, rt, kernels) -> tuple[dict, object]:
+    """PPO learns CartPole with its learner on the card (the default
+    device), the runners CPU actors; returns the trained algorithm for
+    22c."""
+    from ray_tpu_torch import rllib
+
+    zero(kernels)
+    t0 = time.perf_counter()
+    algo = ppo_config(rllib).build()
+    built_s = time.perf_counter() - t0
+    out = {"build_s": built_s,
+           "runner_ready_s": runners_ready_s(
+               rt, algo.runner_group.runners, t0)}
+    dev = {t.device.type for t in rllib.learner.leaves(algo.learner.params)}
+    if dev != {"cuda"}:
+        fail(f"22a: the learner's params are on {dev}, not the card")
+    sample = algo.runner_group.sample = _Timed(algo.runner_group.sample)
+    algo.learner._update = upd = _Evented(torch, algo.learner._update)
+    iters, first, last = [], None, None
+    for i in range(PPO_ITERS):
+        sample.s = 0.0
+        t1 = time.perf_counter()
+        res = algo.train()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t1
+        ret = res["env_runners"]["episode_return_mean"]
+        if ret == ret:
+            first = ret if first is None else first
+            last = ret
+        iters.append({"s": s, "sample_s": sample.s, "learn_s": s - sample.s,
+                      "return_mean": ret,
+                      "total_loss": res["learners"].get("total_loss")})
+        print(f"22a iteration {i}: {s:.3f} s (sample {sample.s:.3f}, learn "
+              f"{s - sample.s:.3f}), return mean {ret:.2f}", flush=True)
+    update_ms = upd.ms()
+    algo.runner_group.sample = sample.fn
+    algo.learner._update = upd.fn
+    loss = iters[-1]["total_loss"]
+    out.update(iterations=iters, first=first, last=last,
+               updates=len(update_ms),
+               update_ms_mean=sum(update_ms) / len(update_ms),
+               update_ms_median=sorted(update_ms)[len(update_ms) // 2],
+               update_ms_min=min(update_ms), update_ms_max=max(update_ms),
+               launches=counts(kernels))
+    if first is None or not last > first + PPO_GAIN:
+        fail(f"22a: PPO did not learn on the card: {first} -> {last}")
+    if not (loss is not None and loss == loss and abs(loss) != float("inf")):
+        fail(f"22a: total_loss is not finite: {loss}")
+    out["parity"] = ppo_parity(torch, algo)
+    return out, algo
+
+
+def dqn_22b(torch, rt, kernels) -> dict:
+    """DQN learns CartPole (tests/test_rllib_dqn.py's config, at most 40
+    iterations) with its online and target params on the card."""
+    from ray_tpu_torch import rllib
+
+    zero(kernels)
+    t0 = time.perf_counter()
+    algo = (rllib.DQNConfig().environment(env="CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=8)
+            .training(lr=1e-3, gamma=0.99, buffer_size=20_000,
+                      train_batch_size=64, target_update_freq=200,
+                      num_updates_per_step=48, learning_starts=400,
+                      epsilon_decay_steps=4_000)
+            .debugging(seed=SEED).build())
+    try:
+        out = {"build_s": time.perf_counter() - t0,
+               "runner_ready_s": runners_ready_s(
+                   rt, algo.runner_group.runners, t0)}
+        dev = {t.device.type for t in
+               rllib.learner.leaves(algo.params)
+               + rllib.learner.leaves(algo.target_params)}
+        if dev != {"cuda"}:
+            fail(f"22b: DQN's params are on {dev}, not the card")
+        sample = algo.runner_group.sample_epsilon_greedy = _Timed(
+            algo.runner_group.sample_epsilon_greedy)
+        algo._update = upd = _Evented(torch, algo._update)
+        best, reached, learn_s = 0.0, None, 0.0
+        for i in range(DQN_MAX_ITERS):
+            sample.s = 0.0
+            t1 = time.perf_counter()
+            res = algo.train()
+            torch.cuda.synchronize()
+            learn_s += time.perf_counter() - t1 - sample.s
+            mean = res["env_runners"]["episode_return_mean"]
+            if mean == mean:
+                best = max(best, mean)
+            if best >= DQN_BEST:
+                reached = i + 1
+                break
+        update_ms = upd.ms()
+        n = res["learners"].get("num_updates", 0)
+        out.update(best=best, iterations_to_threshold=reached,
+                   num_updates=n, learn_s=learn_s,
+                   updates_per_s=n / learn_s if learn_s > 0 else None,
+                   update_ms_mean=(sum(update_ms) / len(update_ms)
+                                   if update_ms else None),
+                   update_ms_median=(sorted(update_ms)[len(update_ms) // 2]
+                                     if update_ms else None),
+                   launches=counts(kernels))
+        if not best >= DQN_BEST:
+            fail(f"22b: DQN did not reach {DQN_BEST} in {DQN_MAX_ITERS} "
+                 f"iterations (best {best})")
+        if not n > 0:
+            fail("22b: DQN made no update")
+        return out
+    finally:
+        algo.stop()
+
+
+def checkpoint_22c(torch, algo, root: str) -> dict:
+    """22a's trained PPO saved, restored into a fresh PPO on the card;
+    equal params and equal greedy actions on seeded observations."""
+    import numpy as np
+
+    from ray_tpu_torch import rllib
+
+    t0 = time.perf_counter()
+    path = algo.save(os.path.join(root, "ppo_ckpt"))
+    save_s = time.perf_counter() - t0
+    fresh = ppo_config(rllib).env_runners(num_env_runners=0).build()
+    try:
+        t0 = time.perf_counter()
+        fresh.restore(path)
+        restore_s = time.perf_counter() - t0
+        rel, _ = tree_rel_err(torch, fresh.learner.params,
+                              algo.learner.params)
+        obs = np.random.default_rng(SEED).normal(
+            size=(RL_CHECK_OBS, 4)).astype(np.float32)
+        a = rllib.rl_module.forward_inference(algo.learner.params, obs)
+        b = rllib.rl_module.forward_inference(fresh.learner.params, obs)
+        if a.device.type != "cuda" or b.device.type != "cuda":
+            fail("22c: greedy actions not computed on the card")
+        equal = int((a == b).sum().item())
+        if rel != 0.0 or equal != RL_CHECK_OBS:
+            fail(f"22c: restored params differ ({rel}) or greedy actions "
+                 f"differ on {RL_CHECK_OBS - equal} of {RL_CHECK_OBS}")
+        return {"save_s": save_s, "restore_s": restore_s,
+                "equal_actions": equal, "obs": RL_CHECK_OBS,
+                "action_share_1": float(a.float().mean().item())}
+    finally:
+        fresh.stop()
+
+
+def cpp_worker_22d(rt) -> dict:
+    """The port's C++ worker built by g++ here and joined to the session;
+    add, concat and vec_sum answered."""
+    from ray_tpu_torch import cross_lang
+
+    binary = os.path.join(cross_lang._BUILD_DIR, "cpp_worker")
+    if os.path.exists(binary):
+        os.remove(binary)  # build it here, from the checkout's source
+    t0 = time.perf_counter()
+    cross_lang.ensure_cpp_worker_binary()
+    out = {"build_s": time.perf_counter() - t0}
+    proc = rt.start_cpp_worker()
+    try:
+        t0 = time.perf_counter()
+        worker = rt._private.api._get_worker()
+        while not any(w.get("wid", "").startswith("cpp-")
+                      and not w.get("dead") for w in worker.rpc(
+                          {"type": "list_workers"})["workers"]):
+            if time.perf_counter() - t0 > CPP_WAIT_S or proc.poll() is not None:
+                fail(f"22d: the C++ worker did not register (exit "
+                     f"{proc.poll()})")
+            time.sleep(0.05)
+        out["register_s"] = time.perf_counter() - t0
+        calls = {}
+        for name, args, want in (("add", (2, 3), 5),
+                                 ("concat", ("tpu", "-", "native"),
+                                  "tpu-native"),
+                                 ("vec_sum", ([1, 2, 3.5],), 6.5)):
+            t0 = time.perf_counter()
+            got = rt.get(rt.cpp_function(name).remote(*args), timeout=60)
+            calls[name] = {"ms": 1e3 * (time.perf_counter() - t0),
+                           "result": got}
+            if got != want:
+                fail(f"22d: {name}{args} gave {got!r}, not {want!r}")
+        out["calls"] = calls
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+    return out
+
+
+def rl_phase(torch, rt, kernels, card: str) -> dict:
+    """Phase 22 in a fresh session: 22a PPO, 22b DQN, 22c the checkpoint
+    round trip, 22d the C++ worker. chip_smoke's launch counts must stay
+    0 (RLlib reaches no kernel of the four)."""
+    import glob
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phase22_")
+    out: dict = {}
+    info = rt.init(**RL_SESSION)
+    sid = info["session_id"]
+    algo = None
+    try:
+        t0 = time.perf_counter()
+        out["22a"], algo = ppo_22a(torch, rt, kernels)
+        out["22a"]["sub_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["22c"] = checkpoint_22c(torch, algo, root)
+        out["22c"]["sub_phase_s"] = time.perf_counter() - t0
+        algo.stop()
+        algo = None
+        t0 = time.perf_counter()
+        out["22b"] = dqn_22b(torch, rt, kernels)
+        out["22b"]["sub_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["22d"] = cpp_worker_22d(rt)
+        out["22d"]["sub_phase_s"] = time.perf_counter() - t0
+    finally:
+        if algo is not None:
+            algo.stop()
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    for path in ("22a", "22b"):
+        if any(out[path]["launches"].values()):
+            fail(f"{path}: RLlib launched a kernel: {out[path]['launches']}")
+    left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+    if left:
+        fail(f"22: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    a, b, d = out["22a"], out["22b"], out["22d"]
+    print(f"rllib on {card}: PPO {a['first']:.2f} -> {a['last']:.2f} in "
+          f"{PPO_ITERS} iterations, update {a['update_ms_mean']:.3f} ms "
+          f"mean, {a['update_ms_median']:.3f} median (CUDA events, "
+          f"{a['updates']} updates), card vs CPU "
+          f"{a['parity']['max_rel_err']:.3g} relative; runners ready "
+          + ", ".join(f"{s:.3f}" for s in a["runner_ready_s"])
+          + f" s; DQN best {b['best']:.2f} in "
+          f"{b['iterations_to_threshold']} iterations, "
+          f"{b['updates_per_s']:.1f} updates/s; checkpoint "
+          f"{out['22c']['equal_actions']}/{RL_CHECK_OBS} equal actions; "
+          f"C++ worker built in {d['build_s']:.3f} s; phase 22 took "
+          f"{out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -7300,7 +7702,7 @@ def main() -> int:
                 "device_producer": {}, "dag_engine": {},
                 "follower_engine": {}, "follower_retry": {},
                 "pip_env_actor": {}, "autoscaled_actor": {},
-                "job_serve": {}, "llm_bench": {},
+                "job_serve": {}, "llm_bench": {}, "rl_ppo": {}, "rl_dqn": {},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -7446,6 +7848,12 @@ def main() -> int:
         launches["job_serve"] = ops["launches"]
         launches["llm_bench"] = ops["llm_bench_launches"]
         print(json.dumps({"card": card, "ops_plane": ops}), flush=True)
+        # phase 22: RLlib's learners on the card and the C++ worker, in a
+        # fresh session
+        rl = rl_phase(torch, ray_tpu_torch, all_kernels, card)
+        launches["rl_ppo"] = rl["22a"]["launches"]
+        launches["rl_dqn"] = rl["22b"]["launches"]
+        print(json.dumps({"card": card, "rllib": rl}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

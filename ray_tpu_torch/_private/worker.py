@@ -828,6 +828,30 @@ class CoreWorker:
             return ObjectRefGenerator(task_id, self)
         return [ObjectRef(f"{task_id}r{i:04d}") for i in range(num_returns)]
 
+    def submit_cross_lang_task(self, func_name: str, args: list, *,
+                               lang: str, resources: dict | None = None):
+        """Submit a task for a cross-language worker: args/results are
+        JSON values, functions are referenced by NAME (reference: the
+        C++/Java worker APIs call registered functions cross-language)."""
+        task_id = TaskID().hex()
+        spec = {
+            "kind": "task",
+            "task_id": task_id,
+            "lang": lang,
+            "func_name": func_name,
+            "args": args,
+            "deps": [],
+            "num_returns": 1,
+            "resources": resources or {"CPU": 1.0},
+            "max_retries": 0,
+            "retries_used": 0,
+            "name": f"{lang}:{func_name}",
+            "strategy": None,
+        }
+        # always the GCS path: leases/direct push are Python-worker planes
+        self.rpc({"type": "submit_task", "spec": spec})
+        return ObjectRef(f"{task_id}r0000")
+
     # -------------------------------------------------------- direct path
     # Lease-based caller→worker submission (reference: leased-worker task
     # pushes, normal_task_submitter.h:81; locality via lease_policy.h).

@@ -363,13 +363,18 @@ _ALLOWED = {
     ("silent-swallow", "util/multiprocessing/pool.py",
      "_ChunkedResult._collect"),
     ("silent-swallow", "util/queue.py", "Queue.shutdown"),
+    # the env runners (baseline.txt's rllib/env_runner.py entries): a
+    # failed runner's sample is dropped and the runner replaced, and the
+    # group's teardown sweeps on past a runner already dead
+    ("silent-swallow", "rllib/env_runner.py", "EnvRunnerGroup._collect"),
+    ("silent-swallow", "rllib/env_runner.py", "EnvRunnerGroup.shutdown"),
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
 # the transfer plane, PD (below Serve and its deployments) and channel
 # modules, the runtime core's host modules, Serve, the LLM server, Data,
-# the batch processor, Train, Tune, the host collectives, compiled DAGs
-# and device objects
+# the batch processor, Train, Tune, the host collectives, compiled DAGs,
+# device objects and RLlib's env runners
 _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "events", "fixed_point", "gcs", "gcs_storage", "ids",
             "local_mode", "log_monitor", "memory_monitor",
@@ -422,7 +427,8 @@ _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
                 "util/client/proxier.py", "util/client/relay.py",
                 "util/multiprocessing/__init__.py",
                 "util/multiprocessing/pool.py", "util/joblib/__init__.py",
-                "util/dask/__init__.py")
+                "util/dask/__init__.py", "rllib/env_runner.py",
+                "rllib/multi_agent_runner.py")
 
 
 def test_graft_check_invariants_hold_on_the_ports_host_modules():

@@ -298,6 +298,15 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.tune, ray_tpu_torch.tune.trial\n"
         "import ray_tpu_torch.tune.search, ray_tpu_torch.tune.schedulers\n"
         "import ray_tpu_torch.tune.tuner\n"
+        "import ray_tpu_torch.rllib, ray_tpu_torch.rllib.algorithms\n"
+        "import ray_tpu_torch.rllib.algorithm, ray_tpu_torch.rllib.env\n"
+        "import ray_tpu_torch.rllib.env_runner, ray_tpu_torch.rllib.learner\n"
+        "import ray_tpu_torch.rllib.multi_agent_env\n"
+        "import ray_tpu_torch.rllib.multi_agent_runner\n"
+        "import ray_tpu_torch.rllib.multi_rl_module\n"
+        "import ray_tpu_torch.rllib.replay, ray_tpu_torch.rllib.rl_module\n"
+        "import ray_tpu_torch.rllib.algorithms.ppo\n"
+        "import ray_tpu_torch.rllib.algorithms.dqn\n"
         "import ray_tpu_torch.util.collective\n"
         "import ray_tpu_torch.util.collective.collective\n"
         "import ray_tpu_torch.util.collective.quantization\n"

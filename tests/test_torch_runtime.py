@@ -930,17 +930,21 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
         return 1
 
     w = worker._global_worker or rt._private.api._get_worker()
+    # C++ workers (item 22) are ported; the RLlib algorithms held back for
+    # its part two (item 14) refuse where a user reaches them
+    import importlib
+
+    rllib = importlib.import_module("ray_tpu_torch.rllib")
+    algorithms = importlib.import_module("ray_tpu_torch.rllib.algorithms")
     cases = {
-        "item 22": lambda: rt.cpp_function("add"),
+        "item 14": [lambda: rllib.IMPALAConfig, lambda: rllib.SAC,
+                    lambda: algorithms.IMPALA],
     }
-    for item, call in cases.items():
-        msg = _refused(call)
-        assert msg and f"ROADMAP.md Queue 1 {item}" in msg, (item, msg)
-    for item, call in {
-        "item 22": lambda: rt.start_cpp_worker(),
-    }.items():
-        msg = _refused(call)
-        assert msg and f"ROADMAP.md Queue 1 {item}" in msg, (item, msg)
+    for item, calls in cases.items():
+        for call in calls:
+            msg = _refused(call)
+            assert msg and f"ROADMAP.md Queue 1 {item}" in msg, (item, msg)
+    assert callable(rt.cpp_function("add").remote)
     # multi-host (item 17) is ported: a copy on an unreachable host is a
     # failed pull (False), not a refusal, and a native server on a
     # file-backed store starts and serves
