@@ -276,8 +276,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       composition). 3: the actor's time to ready, rows/s and generated
       tokens/s; launches in the actor: flash forward 32 x its prefills,
       ragged 32 x its decode steps, no backward, and none in the driver.
-   b. 4,096 uint8 rows of [224, 224, 3] (0.6 GB, numpy seed) through
-      ``from_numpy`` in 16 blocks of 256; a ``map_batches`` stage of a
+   b. 2,048 uint8 rows of [224, 224, 3] (0.3 GB, numpy seed) through
+      ``from_numpy`` in 8 blocks of 256; a ``map_batches`` stage of a
       callable class with ``num_gpus=1`` and ``concurrency=1`` normalizes
       each batch on the card and in numpy in its worker: one device
       visible, within 1e-6. Then ``iter_device_batches(device="cuda",
@@ -350,7 +350,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       ``rtpt_chan_*`` segment.
    c. A chain of 4 actors sharing the card (``num_gpus=0.25``), each
       ``x + 1`` on a bf16 CUDA tensor of 16 KiB and of 16 MiB: every step
-      equals ``x + 4`` exactly; the compiled step's median over 200 steps
+      equals ``x + 4`` exactly; the compiled step's median over 50 steps
       beside the same chain through ``.remote()``, and the 16 MiB
       payload's GB/s.
    After ``shutdown()`` no segment of the session is left.
@@ -473,6 +473,46 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       params and equal greedy actions on 1,024 seeded observations.
    d. The port's C++ worker built by g++ from ``csrc/cpp_worker.cc`` and
       joined to the session: ``add``, ``concat`` and ``vec_sum`` answered.
+
+23. RLlib's model-free algorithms (after phase 22, before phase 11), in a
+   fresh session (16 CPUs, 2 pre-started workers); runners are CPU
+   actors, the learners on the card by default. chip_smoke's launch
+   counts are zeroed before each part and must be 0 after it
+   (``rl_impala``, ``rl_appo``, ``rl_sac``, ``rl_bc``, ``rl_marwil``,
+   ``rl_cql``, ``rl_iql``: RLlib reaches none of the four kernels).
+   a. IMPALA on CartPole-v1 (tests/test_rllib_impala.py's config: 2
+      streaming runners x 8 envs, fragment 48, lr 3e-3, seed 0), 16
+      iterations: the learner on the card, the max of the last 4 mean
+      returns > 40; then one runner killed and the next two iterations
+      consume batches with 2 healthy runners again; then one V-trace
+      update from the trained params and Adam state on one streamed batch
+      on the card and on the CPU, within 1e-5 relative (worst leaf).
+   b. APPO (tests/test_rllib_appo_sac.py's config, clip 0.3), 16
+      iterations: > 40, the target's leaves in storage of their own, kl
+      finite.
+   c. SAC on Pendulum-v1 (2 runners x 4 envs, fragment 25, 128 updates of
+      128 rows an iteration after 600 warm-up steps), at most 70
+      iterations, stopping once the max of the last 4 mean returns passes
+      -800: params and target twins on the card; one update from the
+      trained state with fixed Gaussian draws on the card and on the CPU
+      within 1e-5; saved and restored into a fresh SAC on the card: equal
+      params and equal ``compute_single_action`` on 1,024 observations.
+   d. BC from ``ray_tpu_torch.data.from_items`` (2,000 expert rows, lr
+      1e-2, at most 8 iterations): accuracy >= 0.9 and 2,000 samples
+      trained. MARWIL on the mixed CartPole dataset (8,000 rows, beta 1,
+      lr 3e-3) from the JAX package's seed-0 init
+      (tests/data/marwil_init_seed0.npz): evaluation return > 150 after 12
+      iterations; the same run from the port's own seed-0 init is
+      reported, not gated.
+   e. CQL and IQL on the Pendulum dataset (40 scripted episodes, 1,000
+      updates of 256 rows an iteration), each in a half-GPU task started
+      with the phase and running beside a-d, evaluated from the 4th
+      iteration on, each stopping at its first evaluation over -800
+      within 12 iterations; ``cql_penalty`` and ``v_mean`` finite; the
+      launch counts read in each worker.
+   Each part prints each iteration's seconds (split into sample and learn
+   where runners sample), each update's CUDA-event median and mean,
+   updates/s and iterations to the bar; runners' seconds to ready.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -3462,7 +3502,7 @@ BATCH_ROWS = 64                 # 16a's JSONL rows
 BATCH_SIZE = 16                 # 16a's processor batch
 IMG_SHAPE = (224, 224, 3)       # 16b's uint8 image rows
 IMG_BATCH = 256
-IMG_BATCHES = 16
+IMG_BATCHES = 8                 # cut from 16 to make room for phase 23
 IMG_MEAN = (0.485, 0.456, 0.406)
 IMG_STD = (0.229, 0.224, 0.225)
 NORM_TOL = 1e-6                 # the card's f32 normalization vs numpy's
@@ -3758,7 +3798,7 @@ def batch_llm(torch, rt, card: str, phase4: dict, expected14: list[dict],
 
 
 def data_to_card(torch, rt, card: str, prepare=None) -> dict:
-    """16b: ~0.6 GB of uint8 image rows from a numpy seed through
+    """16b: ~0.3 GB of uint8 image rows from a numpy seed through
     from_numpy, normalized on the card by a num_gpus=1 callable-class
     stage (checked in its worker against numpy), then delivered to the
     driver's card by iter_device_batches and held byte-exact to the host
@@ -4703,7 +4743,7 @@ DEV_MEM_SLACK = 1 << 20          # the producer's memory after the free
 DEV_FREE_S = 15.0
 DAG_BUFFER = 64 << 10            # 18b's channels: a prompt's or 32 ids
 CHAIN_STAGES = 4                 # 18c
-CHAIN_STEPS = 200
+CHAIN_STEPS = 50                 # cut from 200 to make room for phase 23
 CHAIN_SIZES = (16 << 10, 16 << 20)   # 18c's bf16 payloads, in bytes
 
 
@@ -7286,6 +7326,726 @@ def rl_phase(torch, rt, kernels, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 23
+
+RL2_SESSION = {"num_cpus": 16, "num_workers": 2, "max_workers": 10}
+# 23e's tasks hold a 0.5 GPU share, which binds no card: they reach it as
+# the PD pools do (the CPU runners are not hidden from it, and use none)
+RL2_ENV = {"RAY_TPU_TORCH_WORKER_PLATFORM": "cuda"}
+IMPALA_ITERS = 16              # 23a/23b: tests/test_rllib_impala.py's bar
+IMPALA_BAR = 40.0              # max of the last 4 mean returns > 40
+SAC_MAX_ITERS = 70             # 23c: tests/test_rllib_appo_sac.py's bar
+SAC_BAR = -800.0               # max of the last 4 mean returns > -800
+BC_ACC = 0.9                   # 23d: tests/test_rllib_dqn.py's BC bar
+BC_ROWS = 2000
+MARWIL_ITERS = 12              # 23d: tests/test_rllib_offline.py's bar
+MARWIL_BAR = 150.0
+OFFLINE_ITERS = 12             # 23e: CQL and IQL, evaluated from the 4th
+OFFLINE_FIRST_EVAL = 3         # iteration (index 3) on
+OFFLINE_BAR = -800.0
+OFFLINE_GPU_SHARE = 0.5        # 23e: CQL and IQL each in a half-GPU task
+OFFLINE_WAIT_S = 900.0
+# 23d's MARWIL starts from the JAX package's seed-0 init (written by
+# tests/rllib_marwil_seeds.py): from its own seed-0 init the port's run
+# ends below the bar, as the reference's own runs do at most seeds
+# (`python tests/rllib_marwil_seeds.py sweep 10`)
+MARWIL_INIT = os.path.join(HERE, "tests", "data", "marwil_init_seed0.npz")
+
+
+def rl2_cfg(rllib, name: str):
+    """The reference tests' configs: IMPALA and APPO
+    (tests/test_rllib_impala.py:49-68, tests/test_rllib_appo_sac.py:74-93)
+    and SAC (:118-139); the learner where None puts it."""
+    if name == "sac":
+        return (rllib.SACConfig().environment("Pendulum-v1")
+                .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                             rollout_fragment_length=25)
+                .training(lr=1e-3, learning_starts=600,
+                          num_updates_per_step=128, train_batch_size=128)
+                .debugging(seed=SEED))
+    cfg = (rllib.IMPALAConfig() if name == "impala" else rllib.APPOConfig())
+    return (cfg.environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=8,
+                         rollout_fragment_length=48)
+            .training(lr=3e-3, **({"clip_param": 0.3} if name == "appo"
+                                  else {}))
+            .debugging(seed=SEED))
+
+
+def on_card(rllib, *trees) -> set:
+    return {t.device.type for tree in trees
+            for t in rllib.learner.leaves(tree)}
+
+
+def update_stats(ms: list, learn_s: float) -> dict:
+    return {"updates": len(ms),
+            "update_ms_mean": sum(ms) / len(ms) if ms else None,
+            "update_ms_median": sorted(ms)[len(ms) // 2] if ms else None,
+            "update_ms_min": min(ms) if ms else None,
+            "updates_per_s": len(ms) / learn_s if learn_s > 0 else None}
+
+
+class Ready:
+    """Each runner's seconds to ready from `t0` (runners_ready_s), read on
+    a thread of its own while the phase's earlier parts run."""
+
+    def __init__(self, rt, runners, t0: float):
+        import threading
+
+        self.out, self.error = None, None
+        self.thread = threading.Thread(target=self._run,
+                                       args=(rt, list(runners), t0),
+                                       daemon=True)
+        self.thread.start()
+
+    def _run(self, rt, runners, t0):
+        try:
+            self.out = runners_ready_s(rt, runners, t0)
+        except BaseException as e:  # noqa: BLE001 — re-raised by result()
+            self.error = e
+
+    def result(self) -> list[float]:
+        self.thread.join(timeout=330)
+        if self.error is not None:
+            raise self.error
+        if self.out is None:
+            fail("23: env runners not ready after 330 s")
+        return self.out
+
+
+def copy_learner_state(torch, src_params: dict, dst_params: dict,
+                       src_opts: list, dst_opts: list) -> None:
+    """Params and Adam states of one learner into another's live leaves
+    (deep copies: load_state_dict keeps a state tensor already on the
+    param's device, and the first update would move it for the second)."""
+    import copy
+
+    from ray_tpu_torch.rllib.learner import leaves
+
+    with torch.no_grad():
+        for d, s in zip(leaves(dst_params), leaves(src_params)):
+            d.copy_(s)
+    for d, s in zip(dst_opts, src_opts):
+        d.load_state_dict(copy.deepcopy(s.state_dict()))
+
+
+def parity_gate(where: str, torch, a: dict, b: dict, before: dict) -> dict:
+    """The card's tree against the CPU's after the same step: worst leaf's
+    relative error within RL_PARITY_RTOL, and the step moved something."""
+    rel, absmax = tree_rel_err(torch, a, b)
+    moved, _ = tree_rel_err(torch, b, before)
+    if not moved > 0:
+        fail(f"{where}: the parity update moved no param")
+    if not rel <= RL_PARITY_RTOL:
+        fail(f"{where}: one update on the card and on the CPU differ by "
+             f"{rel:.3g} relative (> {RL_PARITY_RTOL}; max abs {absmax:.3g})")
+    return {"max_rel_err": rel, "max_abs_err": absmax,
+            "step_rel_change": moved, "rtol": RL_PARITY_RTOL}
+
+
+def streamed_run(torch, rt, kernels, name: str, algo,
+                 ready: Ready) -> dict:
+    """23a IMPALA / 23b APPO on CartPole: 16 iterations of the built
+    `algo` with the learner on the card."""
+    from ray_tpu_torch import rllib
+
+    zero(kernels)
+    out = {"runner_ready_s": ready.result()}
+    lrn = algo.learner
+    if on_card(rllib, lrn.params, lrn.target_params) != {"cuda"}:
+        fail(f"23 {name}: the learner's params are not on the card")
+    upd = lrn.update = _Evented(torch, _Timed(lrn.update))
+    blob = lrn.get_weights_blob = _Timed(lrn.get_weights_blob)
+    rets, iters, res = [], [], {}
+    for i in range(IMPALA_ITERS):
+        upd.fn.s = blob.s = 0.0
+        t1 = time.perf_counter()
+        res = algo.train()
+        s = time.perf_counter() - t1
+        learn = upd.fn.s + blob.s
+        r = res["env_runners"]["episode_return_mean"]
+        if r == r:
+            rets.append(r)
+        iters.append({"s": s, "sample_s": s - learn, "learn_s": learn,
+                      "return_mean": r,
+                      "batches": res["learners"]["batches_consumed"]})
+        print(f"23 {name} iteration {i}: {s:.3f} s (sample {s - learn:.3f}, "
+              f"learn {learn:.3f}), return mean {r:.2f}", flush=True)
+    ms = upd.ms()
+    lrn.update, lrn.get_weights_blob = upd.fn.fn, blob.fn
+    out.update(iterations=iters, returns=rets, last_result=res["learners"],
+               best_last4=max(rets[-4:]) if rets else None,
+               **update_stats(ms, sum(it["learn_s"] for it in iters)))
+    if not rets or not max(rets[-4:]) > IMPALA_BAR:
+        fail(f"23 {name}: max of the last 4 mean returns not > "
+             f"{IMPALA_BAR}: {rets}")
+    return out
+
+
+def impala_parity(torch, algo) -> dict:
+    """One V-trace update from the trained learner's params and Adam state
+    on one fresh streamed batch, on the card and on the CPU."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.algorithms.dqn import snapshot
+    from ray_tpu_torch.rllib.algorithms.impala import ImpalaLearner
+
+    cfg, src = algo.config, algo.learner
+    batch = rt_get(algo._streams[0])
+    batch.pop("episode_returns", None)
+    obs_dim, n_act = src.params["layers"]["0"]["w"].shape[0], \
+        src.params["pi"]["w"].shape[1]
+    lrns = {}
+    for dev in ("cuda", "cpu"):
+        lrn = ImpalaLearner(obs_dim, n_act, lr=cfg.lr,
+                            hidden=cfg.model_hidden,
+                            vf_coef=cfg.vf_loss_coeff,
+                            ent_coef=cfg.entropy_coeff, gamma=cfg.gamma,
+                            device=dev)
+        copy_learner_state(torch, src.params, lrn.params, [src.optimizer],
+                           [lrn.optimizer])
+        lrn.update(batch)
+        lrns[dev] = lrn
+    before = snapshot(src.params)
+    return {"rows": int(batch["rewards"].size), **parity_gate(
+        "23a", torch, lrns["cuda"].params, lrns["cpu"].params, before),
+        "on_card": sorted(on_card(rllib, lrns["cuda"].params))}
+
+
+def rt_get(stream):
+    import ray_tpu_torch
+
+    return ray_tpu_torch.get(stream.next_item(timeout=120.0), timeout=120.0)
+
+
+def runner_death(rt, algo) -> dict:
+    """tests/test_rllib_impala.py:72-91's case on the trained IMPALA: one
+    runner killed, the next two iterations consumed batches and the pool
+    is back at 2 healthy runners."""
+    t0 = time.perf_counter()
+    rt.kill(algo._runners[0])
+    r2, r3 = algo.train(), algo.train()
+    out = {"s": time.perf_counter() - t0,
+           "batches": [r2["learners"]["batches_consumed"],
+                       r3["learners"]["batches_consumed"]],
+           "healthy": r3["learners"]["num_healthy_runners"]}
+    if not sum(out["batches"]) > 0 or out["healthy"] != 2:
+        fail(f"23a: after a runner's death: {out}")
+    return out
+
+
+def impala_23a(torch, rt, kernels, algo, ready: Ready) -> dict:
+    try:
+        out = streamed_run(torch, rt, kernels, "impala", algo, ready)
+        out["runner_death"] = runner_death(rt, algo)
+        out["launches"] = counts(kernels)
+        out["parity"] = impala_parity(torch, algo)
+    finally:
+        algo.stop()
+    return out
+
+
+def appo_23b(torch, rt, kernels, algo, ready: Ready) -> dict:
+    import math
+
+    from ray_tpu_torch.rllib.learner import leaves
+
+    try:
+        out = streamed_run(torch, rt, kernels, "appo", algo, ready)
+        out["launches"] = counts(kernels)
+        lrn = algo.learner
+        shared = [i for i, (a, b) in enumerate(zip(
+            leaves(lrn.target_params), leaves(lrn.params)))
+            if a.untyped_storage().data_ptr()
+            == b.untyped_storage().data_ptr()]
+        kl = out["last_result"].get("kl")
+        out.update(target_shares_storage=shared, kl=kl)
+        if shared:
+            fail(f"23b: APPO's target leaves {shared} share the live "
+                 f"params' storage")
+        if kl is None or not math.isfinite(kl):
+            fail(f"23b: APPO's kl is not finite: {kl}")
+    finally:
+        algo.stop()
+    return out
+
+
+def sac_parity(torch, algo) -> dict:
+    """One SAC update from the trained params, target twins and Adam
+    states on one replay minibatch, with fixed Gaussian draws, on the card
+    and on the CPU."""
+    from ray_tpu_torch._device import resolve_device
+    from ray_tpu_torch.rllib import learner
+    from ray_tpu_torch.rllib.algorithms import sac
+    from ray_tpu_torch.rllib.algorithms.dqn import snapshot
+
+    cfg = algo.config
+    batch = algo.buffer.sample(cfg.train_batch_size)
+    g = torch.Generator().manual_seed(SEED + 23)
+    noise = {k: torch.randn((cfg.train_batch_size, algo.action_dim),
+                            generator=g) for k in ("next", "pi")}
+    trees = {}
+    for dev in ("cuda", "cpu"):
+        d = resolve_device(dev)
+        params = sac.init_sac_params(torch.Generator().manual_seed(0),
+                                     algo.obs_dim, algo.action_dim,
+                                     cfg.model_hidden, device=dev)
+        target = snapshot({"q1": params["q1"], "q2": params["q2"]})
+        opts = sac.sac_optimizers(params, cfg.lr)
+        copy_learner_state(torch, {**algo.params, "t": algo.target_q},
+                           {**params, "t": target},
+                           list(algo.optimizers.values()),
+                           list(opts.values()))
+        sac.make_sac_update(
+            opts, gamma=cfg.gamma, tau=cfg.tau,
+            action_scale=algo.action_scale,
+            target_entropy=algo.target_entropy,
+            autotune=cfg.autotune_alpha)(
+            params, target, learner.batch_to(batch, d),
+            noise={k: v.to(d) for k, v in noise.items()})
+        trees[dev] = {**params, "t": target}
+    before = snapshot({**algo.params, "t": algo.target_q})
+    return {"rows": cfg.train_batch_size,
+            **parity_gate("23c", torch, trees["cuda"], trees["cpu"], before)}
+
+
+def sac_checkpoint(torch, algo, root: str) -> dict:
+    """The trained SAC saved, restored into a fresh SAC on the card: equal
+    params and equal compute_single_action on seeded observations."""
+    import numpy as np
+
+    from ray_tpu_torch import rllib
+
+    t0 = time.perf_counter()
+    path = algo.save(os.path.join(root, "sac_ckpt"))
+    save_s = time.perf_counter() - t0
+    fresh = rl2_cfg(rllib, "sac").env_runners(num_env_runners=0).build()
+    t0 = time.perf_counter()
+    fresh.restore(path)
+    restore_s = time.perf_counter() - t0
+    rel, _ = tree_rel_err(torch, fresh.params, algo.params)
+    obs = np.random.default_rng(SEED).normal(
+        size=(RL_CHECK_OBS, algo.obs_dim)).astype(np.float32)
+    a = np.stack([algo.compute_single_action(o) for o in obs])
+    b = np.stack([fresh.compute_single_action(o) for o in obs])
+    equal = int((a == b).all(axis=1).sum())
+    fresh.stop()
+    if on_card(rllib, fresh.params, fresh.target_q) != {"cuda"}:
+        fail("23c: the restored SAC is not on the card")
+    if rel != 0.0 or equal != RL_CHECK_OBS:
+        fail(f"23c: restored params differ ({rel}) or actions differ on "
+             f"{RL_CHECK_OBS - equal} of {RL_CHECK_OBS}")
+    return {"save_s": save_s, "restore_s": restore_s,
+            "equal_actions": equal, "obs": RL_CHECK_OBS}
+
+
+def sac_23c(torch, rt, kernels, root: str, algo, ready: Ready) -> dict:
+    """SAC on Pendulum, at most 70 iterations of the built `algo`, stopping
+    once the max of the last 4 mean returns clears -800; the learner on
+    the card."""
+    from ray_tpu_torch import rllib
+
+    zero(kernels)
+    try:
+        out = {"runner_ready_s": ready.result()}
+        if on_card(rllib, algo.params, algo.target_q) != {"cuda"}:
+            fail("23c: SAC's params or target twins are not on the card")
+        upd = algo._update = _Evented(torch, _Timed(algo._update))
+        draw = algo.buffer.sample = _Timed(algo.buffer.sample)
+        rets, iters, reached = [], [], None
+        for i in range(SAC_MAX_ITERS):
+            upd.fn.s = draw.s = 0.0
+            t1 = time.perf_counter()
+            res = algo.train()
+            s = time.perf_counter() - t1
+            learn = upd.fn.s + draw.s
+            r = res["env_runners"]["episode_return_mean"]
+            if r == r:
+                rets.append(r)
+            iters.append({"s": s, "sample_s": s - learn, "learn_s": learn,
+                          "return_mean": r})
+            print(f"23c SAC iteration {i}: {s:.3f} s (sample "
+                  f"{s - learn:.3f}, learn {learn:.3f}), return mean "
+                  f"{r:.2f}", flush=True)
+            if rets and max(rets[-4:]) > SAC_BAR:
+                reached = i + 1
+                break
+        ms = upd.ms()
+        algo._update, algo.buffer.sample = upd.fn.fn, draw.fn
+        out.update(iterations=iters, iterations_to_bar=reached,
+                   best_last4=max(rets[-4:]) if rets else None,
+                   last_result=res["learners"], launches=counts(kernels),
+                   **update_stats(ms, sum(it["learn_s"] for it in iters)))
+        if reached is None:
+            fail(f"23c: SAC's max of the last 4 mean returns not > "
+                 f"{SAC_BAR} in {SAC_MAX_ITERS} iterations: {rets[-8:]}")
+        out["parity"] = sac_parity(torch, algo)
+        out["checkpoint"] = sac_checkpoint(torch, algo, root)
+        return out
+    finally:
+        algo.stop()
+
+
+def cartpole_mixed_rows(steps: int = 8000, eps: float = 0.3,
+                        seed: int = 0) -> list[dict]:
+    """tests/test_rllib_offline.py's mixed CartPole dataset (a stabilizing
+    heuristic with eps-random actions), on the port's env (bit-equal to the
+    reference's)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env import CartPoleVecEnv
+
+    env = CartPoleVecEnv(num_envs=1, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs = env.reset(seed)
+    rows = []
+    for _ in range(steps):
+        th, th_dot = obs[0, 2], obs[0, 3]
+        a = int(th + 0.5 * th_dot > 0)
+        if rng.random() < eps:
+            a = int(rng.integers(0, 2))
+        nxt, r, d, _ = env.step(np.asarray([a]))
+        rows.append({"obs": obs[0].tolist(), "action": a,
+                     "reward": float(r[0]), "done": bool(d[0])})
+        obs = nxt
+    return rows
+
+
+def pendulum_rows(episodes: int = 40, noise: float = 0.3,
+                  seed: int = 0) -> list[dict]:
+    """tests/test_rllib_offline.py's Pendulum dataset: an energy-shaping
+    swing-up controller with exploration noise."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env import PendulumVecEnv
+
+    env = PendulumVecEnv(num_envs=1, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs = env.reset(seed)
+    rows = []
+    for _ in range(episodes * env.MAX_STEPS):
+        cos_th, sin_th, th_dot = obs[0]
+        th_norm = float(np.arctan2(sin_th, cos_th))
+        E = 0.5 * (1.0 / 3.0) * th_dot ** 2 + 5.0 * cos_th
+        if cos_th > 0.85 and abs(th_dot) < 3.0:
+            u = -10.0 * th_norm - 2.0 * th_dot
+        else:
+            s = np.sign(th_dot) if abs(th_dot) > 0.05 else 1.0
+            u = float(np.clip(2.0 * (5.0 - E), -1.5, 1.5)) * s
+        u = float(np.clip(np.clip(u, -1.5, 1.5) + rng.normal() * noise,
+                          -2.0, 2.0))
+        nxt, r, d, _ = env.step(np.asarray([u]))
+        rows.append({"obs": obs[0].tolist(), "action": [u],
+                     "reward": float(r[0]), "next_obs": nxt[0].tolist(),
+                     "done": False})
+        obs = nxt
+    return rows
+
+
+def eval_discrete(algo, num_steps: int = 1200, seed: int = 123) -> float:
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env import CartPoleVecEnv
+
+    env = CartPoleVecEnv(num_envs=4, seed=seed)
+    obs = env.reset(seed)
+    for _ in range(num_steps // 4):
+        obs, _, _, _ = env.step(algo.predict(obs))
+    rets = env.drain_episode_returns()
+    return float(np.mean(rets)) if rets else float(np.mean(
+        env.episode_returns))
+
+
+def eval_continuous(algo, episodes: int = 4, seed: int = 123) -> float:
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env import PendulumVecEnv
+
+    env = PendulumVecEnv(num_envs=episodes, seed=seed)
+    obs = env.reset(seed)
+    for _ in range(env.MAX_STEPS):
+        acts = np.stack([algo.compute_single_action(o) for o in obs])
+        obs, _, _, _ = env.step(acts[:, 0])
+    return float(np.mean(env.drain_episode_returns()))
+
+
+def offline_train(torch, algo, iters: int, evaluate, first_eval: int,
+                  bar=None, label: str = "") -> dict:
+    """`iters` iterations of an offline algorithm with its update under
+    CUDA events; evaluates from iteration `first_eval` on and stops at the
+    first evaluation over `bar` (None: never stops)."""
+    upd = algo._update = _Evented(torch, _Timed(algo._update))
+    iters_out, evals, reached, res = [], [], None, {}
+    for i in range(iters):
+        upd.fn.s = 0.0
+        t1 = time.perf_counter()
+        res = algo.train()
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t1
+        row = {"s": s, "learn_s": s}
+        if i >= first_eval:
+            t2 = time.perf_counter()
+            row["eval_return"] = evaluate(algo)
+            row["eval_s"] = time.perf_counter() - t2
+            evals.append(row["eval_return"])
+        iters_out.append(row)
+        print(f"23 {label} iteration {i}: learn {s:.3f} s"
+              + (f", eval return {row['eval_return']:.2f}"
+                 if "eval_return" in row else ""), flush=True)
+        if bar is not None and evals and evals[-1] > bar:
+            reached = i + 1
+            break
+    ms = upd.ms()
+    algo._update = upd.fn.fn
+    return {"iterations": iters_out, "evals": evals,
+            "iterations_to_bar": reached, "last_result": res["learners"],
+            **update_stats(ms, sum(it["learn_s"] for it in iters_out))}
+
+
+def bc_marwil_23d(torch, rt, kernels) -> dict:
+    """BC from a ray_tpu_torch.data Dataset and MARWIL on the mixed
+    CartPole dataset, learners on the card."""
+    import numpy as np
+
+    from ray_tpu_torch import data as rt_data
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.llm import checkpoint_io
+    from ray_tpu_torch.rllib.algorithm import _merge
+
+    out = {}
+    zero(kernels)
+    rng = np.random.default_rng(0)
+    rows = []
+    for _ in range(BC_ROWS):
+        obs = rng.normal(size=4).astype(np.float32)
+        rows.append({"obs": obs.tolist(), "action": int(obs[0] + obs[2] > 0)})
+    t0 = time.perf_counter()
+    bc = (rllib.BCConfig()
+          .offline(offline_data=rt_data.from_items(rows), obs_dim=4,
+                   num_actions=2, train_batch_size=256)
+          .training(lr=1e-2).debugging(seed=SEED).build())
+    if on_card(rllib, bc.params) != {"cuda"}:
+        fail("23d: BC's params are not on the card")
+    upd = bc._update = _Evented(torch, _Timed(bc._update))
+    acc, res, iters = 0.0, {}, []
+    for _ in range(8):
+        t1 = time.perf_counter()
+        res = bc.train()["learners"]
+        iters.append(time.perf_counter() - t1)
+        acc = res["imitation_accuracy"]
+        if acc >= 0.95:
+            break
+    test_obs = rng.normal(size=(64, 4)).astype(np.float32)
+    agree = float((bc.predict(test_obs) == (
+        test_obs[:, 0] + test_obs[:, 2] > 0).astype(np.int32)).mean())
+    ms = upd.ms()
+    out["bc"] = {"s": time.perf_counter() - t0, "iteration_s": iters,
+                 "accuracy": acc, "fresh_agreement": agree,
+                 "num_samples_trained": res["num_samples_trained"],
+                 "launches": counts(kernels),
+                 **update_stats(ms, upd.fn.s)}
+    if not (acc >= BC_ACC and res["num_samples_trained"] == BC_ROWS
+            and agree >= BC_ACC):
+        fail(f"23d: BC accuracy {acc}, fresh agreement {agree}, "
+             f"{res['num_samples_trained']} samples")
+    zero(kernels)
+    rows = cartpole_mixed_rows()
+    runs = {}
+    for init in ("reference", "own"):
+        algo = (rllib.MARWILConfig()
+                .offline(offline_data=rows, obs_dim=4, num_actions=2,
+                         train_batch_size=256, beta=1.0)
+                .training(lr=3e-3).debugging(seed=SEED).build())
+        if on_card(rllib, algo.params) != {"cuda"}:
+            fail("23d: MARWIL's params are not on the card")
+        if init == "reference":
+            _merge(algo.params, checkpoint_io.load_params(MARWIL_INIT))
+        runs[init] = offline_train(torch, algo, MARWIL_ITERS,
+                                   eval_discrete, 0,
+                                   label=f"MARWIL ({init} init)")
+        runs[init]["num_samples_trained"] = \
+            runs[init]["last_result"]["num_samples_trained"]
+    out["marwil"] = {**runs["reference"], "own_init": runs["own"],
+                     "launches": counts(kernels)}
+    final = runs["reference"]["evals"][-1]
+    if not final > MARWIL_BAR or \
+            runs["reference"]["num_samples_trained"] != len(rows):
+        fail(f"23d: MARWIL's evaluation after {MARWIL_ITERS} iterations "
+             f"{final} not > {MARWIL_BAR}")
+    return out
+
+
+def offline_worker(name: str, prepare=None) -> dict:
+    """23e in a half-GPU task's process: CQL or IQL on the Pendulum dataset
+    (tests/test_rllib_offline.py's configs), the learner on the card,
+    evaluated from the 4th iteration on and stopping at the first
+    evaluation over -800 within 12 iterations; the launch counts are this
+    process's. The driver holds the gates."""
+    import torch
+
+    if prepare is not None:
+        prepare()
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.ops import ragged_paged_attention as ra
+
+    t0 = time.perf_counter()
+    kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ, ra.KERNEL]
+    zero(kernels)
+    rows = pendulum_rows()
+    if name == "cql":
+        cfg = rllib.CQLConfig().offline(
+            offline_data=rows, obs_dim=3, action_dim=1, action_scale=2.0,
+            train_batch_size=256, num_updates_per_step=1000,
+            cql_alpha=0.5, tau=0.01)
+    else:
+        cfg = rllib.IQLConfig().offline(
+            offline_data=rows, obs_dim=3, action_dim=1, action_scale=2.0,
+            train_batch_size=256, num_updates_per_step=1000,
+            expectile=0.7, beta=10.0, tau=0.01)
+    algo = cfg.training(lr=3e-3, gamma=0.95).debugging(seed=SEED).build()
+    devices = sorted(on_card(rllib, algo.params, algo.target_q))
+    run = offline_train(torch, algo, OFFLINE_ITERS, eval_continuous,
+                        OFFLINE_FIRST_EVAL, OFFLINE_BAR, name.upper())
+    key = "cql_penalty" if name == "cql" else "v_mean"
+    run.update(launches=counts(kernels), devices=devices,
+               visible=os.environ.get("CUDA_VISIBLE_DEVICES"),
+               worker_s=time.perf_counter() - t0,
+               **{key: run["last_result"].get(key)})
+    return run
+
+
+def cql_iql_23e(rt, refs: dict, t_start: float) -> dict:
+    """23e's gates on the two workers' runs: the learner on the card, an
+    evaluation over -800 within 12 iterations, cql_penalty and v_mean
+    finite."""
+    import math
+
+    out = {}
+    for name, ref in refs.items():
+        run = out[name] = rt.get(ref, timeout=OFFLINE_WAIT_S)
+        run["done_s"] = time.perf_counter() - t_start
+        key = "cql_penalty" if name == "cql" else "v_mean"
+        for i, it in enumerate(run["iterations"]):
+            print(f"23e {name.upper()} iteration {i}: learn {it['s']:.3f} s"
+                  + (f", eval return {it['eval_return']:.2f}"
+                     if "eval_return" in it else ""), flush=True)
+        if run["devices"] != ["cuda"]:
+            fail(f"23e: {name}'s params are on {run['devices']}")
+        if run["iterations_to_bar"] is None:
+            fail(f"23e: {name}'s evaluations {run['evals']} never > "
+                 f"{OFFLINE_BAR} in {OFFLINE_ITERS} iterations")
+        if run[key] is None or not math.isfinite(run[key]):
+            fail(f"23e: {name}'s {key} is not finite: {run[key]}")
+    return out
+
+
+def rl2_phase(torch, rt, kernels, card: str, prepare=None) -> dict:
+    """Phase 23 in a fresh session: 23e's CQL and IQL start in two
+    half-GPU tasks and run beside 23a IMPALA, 23b APPO, 23c SAC and 23d BC
+    and MARWIL in the driver (an update is host-bound: two more processes
+    take two more of the machine's cores). chip_smoke's launch counts must
+    stay 0 in the driver and in each worker (RLlib reaches no kernel of the
+    four)."""
+    import glob
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch._private.ray_config import RayConfig
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="phase23_")
+    out: dict = {}
+    # the workers import chip_smoke's functions by name when it is not the
+    # main module
+    os.environ["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, os.environ.get("PYTHONPATH")) if p)
+    saved = {k: os.environ.get(k) for k in RL2_ENV}
+    os.environ.update(RL2_ENV)
+    RayConfig.reset()
+    built = {}
+    try:
+        sid = rt.init(**RL2_SESSION)["session_id"]
+        task = rt.remote(num_gpus=OFFLINE_GPU_SHARE)(offline_worker)
+        t_e = time.perf_counter()
+        refs = {n: task.remote(n, prepare) for n in ("cql", "iql")}
+        # every runner starts now: each algorithm's runners come up while
+        # the parts before it train
+        from ray_tpu_torch import rllib
+
+        for name in ("impala", "appo", "sac"):
+            t0 = time.perf_counter()
+            algo = rl2_cfg(rllib, name).build()
+            runners = algo.runners if name == "sac" else algo._runners
+            built[name] = (algo, Ready(rt, runners, t0))
+        for part, fn in (("23a", lambda: impala_23a(torch, rt, kernels,
+                                                    *built["impala"])),
+                         ("23b", lambda: appo_23b(torch, rt, kernels,
+                                                  *built["appo"])),
+                         ("23c", lambda: sac_23c(torch, rt, kernels, root,
+                                                 *built["sac"])),
+                         ("23d", lambda: bc_marwil_23d(torch, rt, kernels)),
+                         ("23e", lambda: cql_iql_23e(rt, refs, t_e))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            out[part]["sub_phase_s"] = time.perf_counter() - t0
+            print(f"23 {part} took {out[part]['sub_phase_s']:.1f} s",
+                  flush=True)
+    finally:
+        for algo, _ in built.values():
+            algo.stop()
+        rt.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        RayConfig.reset()
+    paths = {"rl_impala": out["23a"]["launches"],
+             "rl_appo": out["23b"]["launches"],
+             "rl_sac": out["23c"]["launches"],
+             "rl_bc": out["23d"]["bc"]["launches"],
+             "rl_marwil": out["23d"]["marwil"]["launches"],
+             "rl_cql": out["23e"]["cql"]["launches"],
+             "rl_iql": out["23e"]["iql"]["launches"]}
+    for path, n in paths.items():
+        if any(n.values()):
+            fail(f"23 {path}: RLlib launched a kernel: {n}")
+    out["launches"] = paths
+    left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+    if left:
+        fail(f"23: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    a, b, c = out["23a"], out["23b"], out["23c"]
+    d, e = out["23d"], out["23e"]
+
+    def upd(r):
+        return (f"update {r['update_ms_median']:.3f} ms median, "
+                f"{r['update_ms_mean']:.3f} mean ({r['updates']} updates, "
+                f"{r['updates_per_s']:.1f}/s)")
+
+    print(f"rllib part two on {card}: IMPALA best of last 4 "
+          f"{a['best_last4']:.2f}, {upd(a)}, card vs CPU "
+          f"{a['parity']['max_rel_err']:.3g}, runner death healed in "
+          f"{a['runner_death']['s']:.3f} s; APPO {b['best_last4']:.2f}, "
+          f"{upd(b)}; SAC {c['best_last4']:.2f} in "
+          f"{c['iterations_to_bar']} iterations, {upd(c)}, card vs CPU "
+          f"{c['parity']['max_rel_err']:.3g}, checkpoint "
+          f"{c['checkpoint']['equal_actions']}/{RL_CHECK_OBS}; BC "
+          f"{d['bc']['accuracy']:.3f}, {upd(d['bc'])}; MARWIL "
+          f"{d['marwil']['evals'][-1]:.1f} (own init "
+          f"{d['marwil']['own_init']['evals'][-1]:.1f}), {upd(d['marwil'])};"
+          f" CQL {e['cql']['evals'][-1]:.1f} in "
+          f"{e['cql']['iterations_to_bar']} iterations, {upd(e['cql'])}; "
+          f"IQL {e['iql']['evals'][-1]:.1f} in "
+          f"{e['iql']['iterations_to_bar']} iterations, {upd(e['iql'])}; "
+          f"runners ready "
+          + ", ".join(f"{s:.3f}" for s in a["runner_ready_s"]
+                      + b["runner_ready_s"] + c["runner_ready_s"])
+          + f" s; phase 23 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -7703,6 +8463,8 @@ def main() -> int:
                 "follower_engine": {}, "follower_retry": {},
                 "pip_env_actor": {}, "autoscaled_actor": {},
                 "job_serve": {}, "llm_bench": {}, "rl_ppo": {}, "rl_dqn": {},
+                **{f"rl_{a}": {} for a in ("impala", "appo", "sac", "bc",
+                                           "marwil", "cql", "iql")},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -7854,6 +8616,11 @@ def main() -> int:
         launches["rl_ppo"] = rl["22a"]["launches"]
         launches["rl_dqn"] = rl["22b"]["launches"]
         print(json.dumps({"card": card, "rllib": rl}), flush=True)
+        # phase 23: RLlib's model-free algorithms, learners on the card, in
+        # a fresh session
+        rl2 = rl2_phase(torch, ray_tpu_torch, all_kernels, card)
+        launches.update(rl2["launches"])
+        print(json.dumps({"card": card, "rllib_part_two": rl2}), flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

@@ -88,7 +88,9 @@ class LocalWorker:
         return aid
 
     def submit_actor_task(self, actor_id, method_name, args, kwargs, *,
-                          num_returns=1, max_task_retries=None):
+                          num_returns=1, max_task_retries=None,
+                          backpressure=None):
+        # backpressure: a stream's window; here a generator runs in process
         if actor_id in self._dead_actors:
             # match cluster mode: dead-actor submission yields refs whose
             # get() raises (the reference errors at get, not .remote())

@@ -1230,6 +1230,7 @@ class CoreWorker:
         *,
         num_returns: int = 1,
         max_task_retries: int | None = None,
+        backpressure: int | None = None,
     ) -> list[ObjectRef]:
         task_id = TaskID().hex()
         spec_part, deps = self._serialize_args(args, kwargs)
@@ -1253,6 +1254,8 @@ class CoreWorker:
             # compiled-DAG exec loop pins 0: a lost loop must fail, not be
             # replayed on the restarted actor — see gcs worker-death path)
             spec["max_task_retries"] = int(max_task_retries)
+        if backpressure is not None:
+            spec["backpressure"] = backpressure  # _stream_results' window
         if num_returns == "streaming":
             # stream state must exist before the generator polls: stay sync
             reply = self.rpc({"type": "actor_task", "spec": spec})

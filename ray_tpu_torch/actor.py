@@ -40,21 +40,31 @@ def method(*, concurrency_group: str | None = None,
 
 
 class ActorMethod:
-    def __init__(self, actor_id: str, method_name: str, num_returns: int = 1):
+    def __init__(self, actor_id: str, method_name: str, num_returns: int = 1,
+                 backpressure: int | None = None):
         self._actor_id = actor_id
         self._method_name = method_name
         self._num_returns = num_returns
+        self._backpressure = backpressure
 
-    def options(self, *, num_returns=None, **_ignored) -> "ActorMethod":
-        return ActorMethod(self._actor_id, self._method_name,
-                           self._num_returns if num_returns is None else num_returns)
+    def options(self, *, num_returns=None,
+                _generator_backpressure_num_objects=None,
+                **_ignored) -> "ActorMethod":
+        """`_generator_backpressure_num_objects` (reference: Ray's option of
+        that name): how many items a ``num_returns="streaming"`` producer
+        may run ahead of its consumer; None keeps the runtime's 16."""
+        return ActorMethod(
+            self._actor_id, self._method_name,
+            self._num_returns if num_returns is None else num_returns,
+            self._backpressure if _generator_backpressure_num_objects is None
+            else int(_generator_backpressure_num_objects))
 
     def remote(self, *args, **kwargs):
         from ray_tpu_torch._private.api import _get_worker
 
         refs = _get_worker().submit_actor_task(
             self._actor_id, self._method_name, args, kwargs,
-            num_returns=self._num_returns,
+            num_returns=self._num_returns, backpressure=self._backpressure,
         )
         if self._num_returns == "streaming":
             return refs  # an ObjectRefGenerator

@@ -5,15 +5,22 @@ actors, Learner SGD. Here the learner's params and Adam state live on the
 card (``.learners(device=)``; None is the card) and the env runners are CPU
 actors with their own CPU copy of the module.)
 
-Ported: the core, PPO (with its multi-agent path) and DQN. The other
-algorithms of the JAX package raise, naming their ROADMAP.md item, where a
-user reaches them.
+Ported: the core, PPO (with its multi-agent path), DQN, IMPALA, APPO, SAC,
+BC, MARWIL, CQL and IQL. DreamerV3 raises, naming its ROADMAP.md item,
+where a user reaches it.
 """
 
 from ray_tpu_torch.exceptions import _not_ported
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
+from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
+from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig
+from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig
+from ray_tpu_torch.rllib.algorithms.iql import IQL, IQLConfig
+from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
 from ray_tpu_torch.rllib.algorithms.ppo import PPO, PPOConfig
+from ray_tpu_torch.rllib.algorithms.sac import SAC, SACConfig
 from ray_tpu_torch.rllib.env import (CartPoleVecEnv, PendulumVecEnv,
                                      VectorEnv, make_vec_env)
 from ray_tpu_torch.rllib.env_runner import EnvRunner, EnvRunnerGroup
@@ -28,11 +35,8 @@ from ray_tpu_torch.rllib.multi_rl_module import (MultiRLModuleSpec,
                                                  RLModuleSpec, init_multi)
 from ray_tpu_torch.rllib.replay import ReplayBuffer
 
-# the JAX package's algorithms not ported yet (ROADMAP.md Queue 1 item 14)
-NOT_PORTED = ("APPO", "APPOConfig", "BC", "BCConfig", "CQL", "CQLConfig",
-              "DreamerV3", "DreamerV3Config", "IMPALA", "IMPALAConfig",
-              "IQL", "IQLConfig", "MARWIL", "MARWILConfig", "SAC",
-              "SACConfig")
+# the JAX package's algorithm not ported yet (ROADMAP.md Queue 1 item 14)
+NOT_PORTED = ("DreamerV3", "DreamerV3Config")
 
 
 def __getattr__(name):
@@ -44,8 +48,20 @@ def __getattr__(name):
 __all__ = [
     "Algorithm",
     "AlgorithmConfig",
+    "APPO",
+    "APPOConfig",
+    "BC",
+    "BCConfig",
+    "CQL",
+    "CQLConfig",
     "DQN",
     "DQNConfig",
+    "IMPALA",
+    "IMPALAConfig",
+    "IQL",
+    "IQLConfig",
+    "MARWIL",
+    "MARWILConfig",
     "ReplayBuffer",
     "CartPoleVecEnv",
     "PendulumVecEnv",
@@ -54,6 +70,8 @@ __all__ = [
     "Learner",
     "PPO",
     "PPOConfig",
+    "SAC",
+    "SACConfig",
     "VectorEnv",
     "CoordinationGameVecEnv",
     "MultiAgentCartPoleVecEnv",

@@ -242,9 +242,13 @@ def _esc_label(v) -> str:
 def to_prometheus(agg: dict) -> str:
     """Render a GCS-side aggregate ({name: {kind, description, series:
     {source: [(tags, value), ...]}, ts: {source: snapshot_ts}}}) as
-    Prometheus text format."""
+    Prometheus text format. A family no source has a sample of yet (a
+    metric registered, never recorded) is left out: its HELP line alone
+    would tell a scraper the metric is there before any value is."""
     lines = []
     for name, rec in sorted(agg.items()):
+        if not any(rec["series"].values()):
+            continue
         kind = rec["kind"]
         if rec.get("description"):
             lines.append(f"# HELP {name} {rec['description']}")

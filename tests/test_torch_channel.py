@@ -368,13 +368,18 @@ _ALLOWED = {
     # group's teardown sweeps on past a runner already dead
     ("silent-swallow", "rllib/env_runner.py", "EnvRunnerGroup._collect"),
     ("silent-swallow", "rllib/env_runner.py", "EnvRunnerGroup.shutdown"),
+    # IMPALA and SAC (baseline.txt's rllib/algorithms entries): a runner
+    # being replaced or torn down may already be dead
+    ("silent-swallow", "rllib/algorithms/impala.py", "IMPALA._restart"),
+    ("silent-swallow", "rllib/algorithms/impala.py", "IMPALA.stop"),
+    ("silent-swallow", "rllib/algorithms/sac.py", "SAC.stop"),
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
 # the transfer plane, PD (below Serve and its deployments) and channel
 # modules, the runtime core's host modules, Serve, the LLM server, Data,
 # the batch processor, Train, Tune, the host collectives, compiled DAGs,
-# device objects and RLlib's env runners
+# device objects, RLlib's env runners, IMPALA and SAC
 _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "events", "fixed_point", "gcs", "gcs_storage", "ids",
             "local_mode", "log_monitor", "memory_monitor",
@@ -428,7 +433,8 @@ _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
                 "util/multiprocessing/__init__.py",
                 "util/multiprocessing/pool.py", "util/joblib/__init__.py",
                 "util/dask/__init__.py", "rllib/env_runner.py",
-                "rllib/multi_agent_runner.py")
+                "rllib/multi_agent_runner.py", "rllib/algorithms/impala.py",
+                "rllib/algorithms/sac.py")
 
 
 def test_graft_check_invariants_hold_on_the_ports_host_modules():

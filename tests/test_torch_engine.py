@@ -307,6 +307,13 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.rllib.replay, ray_tpu_torch.rllib.rl_module\n"
         "import ray_tpu_torch.rllib.algorithms.ppo\n"
         "import ray_tpu_torch.rllib.algorithms.dqn\n"
+        "import ray_tpu_torch.rllib.algorithms.impala\n"
+        "import ray_tpu_torch.rllib.algorithms.appo\n"
+        "import ray_tpu_torch.rllib.algorithms.sac\n"
+        "import ray_tpu_torch.rllib.algorithms.bc\n"
+        "import ray_tpu_torch.rllib.algorithms.marwil\n"
+        "import ray_tpu_torch.rllib.algorithms.cql\n"
+        "import ray_tpu_torch.rllib.algorithms.iql\n"
         "import ray_tpu_torch.util.collective\n"
         "import ray_tpu_torch.util.collective.collective\n"
         "import ray_tpu_torch.util.collective.quantization\n"

@@ -64,13 +64,8 @@ ALLOWED = {
            for n in ("convert", "decoding", "decoding_paged")},
     },
     "rllib": {
-        n: "item 14: RLlib part two (the algorithms after PPO and DQN)"
-        for n in ("APPO", "APPOConfig", "BC", "BCConfig", "CQL", "CQLConfig",
-                  "DreamerV3", "DreamerV3Config", "IMPALA", "IMPALAConfig",
-                  "IQL", "IQLConfig", "MARWIL", "MARWILConfig", "SAC",
-                  "SACConfig")},
-    "rllib.algorithms": {
-        n: "item 14: RLlib part two" for n in ("IMPALA", "IMPALAConfig")},
+        n: "item 14: RLlib's last algorithm, DreamerV3"
+        for n in ("DreamerV3", "DreamerV3Config")},
     "ops": {
         "flash_attention": "port: the name is the kernel's submodule; the "
                            "function is FlashAttention / "

@@ -4,8 +4,8 @@ Parity on the CPU, inputs from a numpy seed: one and three
 ``make_dqn_update`` steps (double Q on and off) from the same params,
 target params, fresh Adam state and minibatches give params and metrics
 within 2e-5 (f32). Then twins of tests/test_rllib_dqn.py against the port's
-runtime, with the reference's thresholds and iteration counts (the BC case
-waits for BC's port); the learner on the CPU.
+runtime, with the reference's thresholds and iteration counts; the learner
+on the CPU.
 """
 
 from __future__ import annotations
@@ -182,3 +182,41 @@ def test_dqn_save_restore(tmp_path, session):
         algo2.stop()
     finally:
         algo.stop()
+
+
+@pytest.mark.slow  # the original is slow: conftest marks all of its module
+def test_bc_imitates_offline_dataset(session):
+    """BC on a synthetic expert dataset (action = deterministic fn of obs)
+    reaches high imitation accuracy; works from a ray_tpu_torch.data
+    Dataset."""
+    import ray_tpu_torch.data as rtd
+    from ray_tpu_torch.rllib import BCConfig
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for _ in range(2000):
+        obs = rng.normal(size=4).astype(np.float32)
+        action = int(obs[0] + obs[2] > 0)  # "expert" rule
+        rows.append({"obs": obs.tolist(), "action": action})
+    ds = rtd.from_items(rows)
+
+    algo = (BCConfig()
+            .offline(offline_data=ds, obs_dim=4, num_actions=2,
+                     train_batch_size=256)
+            .training(lr=1e-2)
+            .learners(device="cpu")
+            .debugging(seed=0)
+            .build())
+    acc = 0.0
+    for _ in range(8):
+        result = algo.train()
+        acc = result["learners"]["imitation_accuracy"]
+        if acc >= 0.95:
+            break
+    assert acc >= 0.9, f"BC did not imitate (accuracy {acc})"
+    assert result["learners"]["num_samples_trained"] == 2000
+    # the learned policy matches the expert rule on fresh samples
+    test_obs = rng.normal(size=(64, 4)).astype(np.float32)
+    pred = algo.predict(test_obs)
+    want = (test_obs[:, 0] + test_obs[:, 2] > 0).astype(np.int32)
+    assert (pred == want).mean() >= 0.9

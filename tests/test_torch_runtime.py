@@ -930,15 +930,13 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
         return 1
 
     w = worker._global_worker or rt._private.api._get_worker()
-    # C++ workers (item 22) are ported; the RLlib algorithms held back for
-    # its part two (item 14) refuse where a user reaches them
+    # C++ workers (item 22) are ported; DreamerV3, the RLlib algorithm
+    # held back (item 14), refuses where a user reaches it
     import importlib
 
     rllib = importlib.import_module("ray_tpu_torch.rllib")
-    algorithms = importlib.import_module("ray_tpu_torch.rllib.algorithms")
     cases = {
-        "item 14": [lambda: rllib.IMPALAConfig, lambda: rllib.SAC,
-                    lambda: algorithms.IMPALA],
+        "item 14": [lambda: rllib.DreamerV3Config, lambda: rllib.DreamerV3],
     }
     for item, calls in cases.items():
         for call in calls:

@@ -301,6 +301,24 @@ def test_prometheus_rendering():
     assert text == _mod("ray_tpu", "util.metrics").to_prometheus(agg)
 
 
+def test_prometheus_leaves_out_families_without_a_sample():
+    """A metric registered in a process but never recorded reaches the GCS
+    with no series; the port's scrape shows it only once it has a value
+    (the JAX package writes its HELP and TYPE lines at once, which let a
+    scraper polling for the name see it before any sample)."""
+    agg = {
+        "empty_total": {"kind": "counter", "description": "never recorded",
+                        "series": {"w1": [], "w2": []}},
+        "reqs": {"kind": "counter", "description": "d",
+                 "series": {"w1": [], "w2": [[[["a", "b"]], 3.0]]}},
+    }
+    text = met.to_prometheus(agg)
+    assert "empty_total" not in text
+    assert "# HELP reqs d" in text and 'reqs{a="b"} 3.0' in text
+    assert "# HELP empty_total" in _mod("ray_tpu",
+                                        "util.metrics").to_prometheus(agg)
+
+
 def test_prometheus_label_escaping_and_bucket_mismatch():
     agg = {
         "esc": {"kind": "counter", "description": "",
