@@ -513,6 +513,23 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    Each part prints each iteration's seconds (split into sample and learn
    where runners sample), each update's CUDA-event median and mean,
    updates/s and iterations to the bar; runners' seconds to ready.
+24. DreamerV3 (after phase 23, before phase 11), in a fresh session (16
+   CPUs, 2 pre-started workers); the runners CPU actors, the learner on
+   the card by default. chip_smoke's launch counts are zeroed before each
+   part and must be 0 after it (``rl_dreamerv3``: no kernel of the four).
+   a. From the port's seed-0 init drawn on the CPU, one world-model update
+      and one dream update on the card and on the CPU, on the same
+      CartPole batch (16 random-action windows of 32 steps) and the same
+      Gumbel draws (drawn on the CPU): every leaf, the slow critic, the
+      return EMA and the features within 1e-4 absolute, and every sampled
+      index (posterior latents, imagined actions and latents) equal.
+   b. tests/test_rllib_dreamer.py's config (CartPole-v1, 2 runners x 4
+      envs, fragment 64, 512 warm-up steps, 8 update pairs an iteration,
+      seed 0), 40 iterations: params, slow critic and return EMA on the
+      card; the max of the last 10 mean returns > 60 and the last
+      ``wm_loss`` < 2.0. Prints the return curve, each iteration's seconds
+      split into sample and learn, the world-model and dream updates'
+      CUDA-event medians and means, and the runners' seconds to ready.
 
 The line before last is the ``kernels`` JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -7404,12 +7421,12 @@ class Ready:
         except BaseException as e:  # noqa: BLE001 — re-raised by result()
             self.error = e
 
-    def result(self) -> list[float]:
+    def result(self, tag: str = "23") -> list[float]:
         self.thread.join(timeout=330)
         if self.error is not None:
             raise self.error
         if self.out is None:
-            fail("23: env runners not ready after 330 s")
+            fail(f"{tag}: env runners not ready after 330 s")
         return self.out
 
 
@@ -8046,6 +8063,250 @@ def rl2_phase(torch, rt, kernels, card: str, prepare=None) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 24
+
+DREAMER_ITERS = 40             # 24b: tests/test_rllib_dreamer.py's bar
+DREAMER_BAR = 60.0             # max of the last 10 mean returns > 60
+DREAMER_WM_BAR = 2.0           # and the last wm_loss < 2.0
+# 24a: one world-model and one dream update on the card and on the CPU,
+# f32 with TF32 off: every leaf's max |card - cpu| within this
+DREAMER_ABS_TOL = 1e-4
+
+
+def dreamer_cfg(rllib):
+    """tests/test_rllib_dreamer.py:57-64's config; the learner where None
+    puts it."""
+    return (rllib.DreamerV3Config().environment("CartPole-v1")
+            .env_runners(num_env_runners=2, num_envs_per_env_runner=4,
+                         rollout_fragment_length=64)
+            .training(learning_starts=512, num_updates_per_step=8)
+            .debugging(seed=SEED))
+
+
+def cartpole_windows(B: int, T: int, seed: int) -> dict:
+    """B windows of T CartPole steps under uniform random actions, in the
+    sequence buffer's layout [B, T, ...] (prev_actions and is_first as the
+    runner keeps them)."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env import CartPoleVecEnv
+
+    env = CartPoleVecEnv(num_envs=B, seed=seed)
+    rng = np.random.default_rng(seed)
+    obs = env.reset(seed)
+    prev, first = np.zeros(B, np.int64), np.ones(B, np.float32)
+    cols = {k: [] for k in ("obs", "actions", "prev_actions", "rewards",
+                            "dones", "is_first")}
+    for _ in range(T):
+        a = rng.integers(0, 2, B)
+        cols["obs"].append(obs)
+        cols["prev_actions"].append(prev)
+        cols["is_first"].append(first)
+        obs, r, d, _ = env.step(a)
+        cols["actions"].append(a)
+        cols["rewards"].append(r)
+        cols["dones"].append(d)
+        prev, first = a, d.astype(np.float32)
+    return {k: np.stack(v, 1) for k, v in cols.items()}
+
+
+def leaf_abs_diffs(torch, a: dict, b: dict, prefix: str = "") -> dict:
+    """max |a - b| of every leaf of two trees, by path."""
+    if not isinstance(a, dict):
+        return {prefix: (a.detach().cpu() - b.detach().cpu()).abs()
+                .max().item()}
+    out = {}
+    for k in sorted(a):
+        out.update(leaf_abs_diffs(torch, a[k], b[k], f"{prefix}{k}/"))
+    return out
+
+
+def tree_to(tree, device):
+    """A detached copy of a params tree on `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.detach().to(device, copy=True)
+
+
+def dreamer_parity_24a(torch, cfg) -> dict:
+    """One world-model update and one dream update from the seed-0 init on
+    the card and on the CPU, with the same batch and Gumbel draws."""
+    from ray_tpu_torch import _device
+    from ray_tpu_torch.rllib import learner
+    from ray_tpu_torch.rllib.algorithms import dreamerv3 as dv
+    from ray_tpu_torch.rllib.algorithms.dqn import snapshot
+
+    t0 = time.perf_counter()
+    B, T, H = cfg.batch_size_B, cfg.batch_length_T, cfg.horizon_H
+    S, C, A = cfg.stoch_dims, cfg.stoch_classes, 2
+    batch = dv.time_major(cartpole_windows(B, T, SEED), A)
+    init = dv.init_dreamer_params(torch.Generator().manual_seed(SEED), 4, A,
+                                  cfg, device="cpu")
+    g = torch.Generator().manual_seed(SEED + 24)
+    like = torch.zeros(())
+    noise = {"wm": dv.gumbel(g, (T, B, S, C), like),
+             "action": dv.gumbel(g, (H, T * B, A), like),
+             "z": dv.gumbel(g, (H, T * B, S, C), like)}
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        d = _device.resolve_device(dev)
+        params = tree_to(init, d)
+        slow = snapshot(params["critic"])
+        wm = {k: params[k] for k in dv.WM_KEYS}
+        wm_update = dv.make_world_model_update(
+            learner.make_optimizer(wm, cfg.world_lr), cfg, A)
+        dream_update = dv.make_dream_update(
+            learner.make_optimizer(params["actor"], cfg.actor_lr),
+            learner.make_optimizer(params["critic"], cfg.critic_lr), cfg, A)
+        dn = {"action": noise["action"].to(d), "z": noise["z"].to(d)}
+        feats, wm_m = wm_update(wm, learner.batch_to(batch, d),
+                                noise=noise["wm"].to(d))
+        feats0 = feats.reshape(-1, feats.shape[-1])
+        # the imagination the dream update is about to roll, sampled
+        # indices and all
+        dream_feats, acts = dv.imagine(params, feats0, cfg, A, noise=dn)
+        ema, dm = dream_update(params, slow, torch.ones((), device=d),
+                               feats0, noise=dn)
+        D = cfg.deter_dim
+        runs[dev] = {
+            "tree": {"params": params, "slow_critic": slow, "ret_ema": ema,
+                     "feats": feats},
+            "indices": torch.cat([
+                feats[..., D:].reshape(-1, S, C).argmax(-1).reshape(-1),
+                dream_feats[..., D:].reshape(-1, S, C).argmax(-1)
+                .reshape(-1), acts.reshape(-1)]).cpu(),
+            "metrics": learner.floats({**wm_m, **dm})}
+    diffs = leaf_abs_diffs(torch, runs["cuda"]["tree"], runs["cpu"]["tree"])
+    moved = max(leaf_abs_diffs(torch, runs["cpu"]["tree"]["params"],
+                               init).values())
+    flipped = int((runs["cuda"]["indices"]
+                   != runs["cpu"]["indices"]).sum())
+    worst = max(diffs.values())
+    out = {"max_abs_err": worst, "leaf_max_abs_err": diffs,
+           "indices": int(runs["cpu"]["indices"].numel()),
+           "indices_differing": flipped, "step_max_abs_change": moved,
+           "metrics_cuda": runs["cuda"]["metrics"],
+           "metrics_cpu": runs["cpu"]["metrics"], "atol": DREAMER_ABS_TOL,
+           "s": time.perf_counter() - t0}
+    slow = max(v for k, v in diffs.items() if k.startswith("slow_critic"))
+    print(f"24a card vs CPU: max abs {worst:.3g} over {len(diffs)} leaves "
+          f"(slow critic {slow:.3g}, ret_ema {diffs['ret_ema/']:.3g}, feats "
+          f"{diffs['feats/']:.3g}); {flipped} of {out['indices']} sampled "
+          f"indices differ", flush=True)
+    if not moved > 0:
+        fail("24a: the parity updates moved no param")
+    if flipped or not worst <= DREAMER_ABS_TOL:
+        fail(f"24a: one world-model and one dream update on the card and on "
+             f"the CPU differ by {worst:.3g} (> {DREAMER_ABS_TOL}) or in "
+             f"{flipped} sampled indices")
+    return out
+
+
+def dreamer_24b(torch, rt, kernels, algo, ready: Ready) -> dict:
+    """tests/test_rllib_dreamer.py's run: 40 iterations of the built `algo`
+    with the learner on the card, its bar."""
+    from ray_tpu_torch import rllib
+
+    zero(kernels)
+    out = {"runner_ready_s": ready.result("24b")}
+    if on_card(rllib, algo.params, algo.slow_critic) != {"cuda"} or \
+            algo.ret_ema.device.type != "cuda":
+        fail("24b: DreamerV3's params, slow critic or return EMA are not on "
+             "the card")
+    wm = algo._wm_update = _Evented(torch, _Timed(algo._wm_update))
+    dr = algo._dream_update = _Evented(torch, _Timed(algo._dream_update))
+    draw = algo.buffer.sample = _Timed(algo.buffer.sample)
+    rets, iters, res = [], [], {}
+    for i in range(DREAMER_ITERS):
+        wm.fn.s = dr.fn.s = draw.s = 0.0
+        t1 = time.perf_counter()
+        res = algo.train()
+        s = time.perf_counter() - t1
+        learn = wm.fn.s + dr.fn.s + draw.s
+        r = res["env_runners"]["episode_return_mean"]
+        if r == r:
+            rets.append(r)
+        lm = res["learners"]
+        iters.append({"s": s, "sample_s": s - learn, "learn_s": learn,
+                      "return_mean": r, "wm_loss": lm.get("wm_loss"),
+                      "env_steps": lm["env_steps"]})
+        print(f"24b DreamerV3 iteration {i}: {s:.3f} s (sample "
+              f"{s - learn:.3f}, learn {learn:.3f}), return mean {r:.2f}, "
+              f"wm_loss {lm.get('wm_loss', float('nan')):.4f}", flush=True)
+    wm_ms, dr_ms = wm.ms(), dr.ms()
+    algo._wm_update, algo._dream_update = wm.fn.fn, dr.fn.fn
+    algo.buffer.sample = draw.fn
+    learn_s = sum(it["learn_s"] for it in iters)
+    out.update(iterations=iters, returns=rets, last_result=res["learners"],
+               best_last10=max(rets[-10:]) if rets else None,
+               launches=counts(kernels),
+               world_model=update_stats(wm_ms, learn_s),
+               dream=update_stats(dr_ms, learn_s),
+               sample_s=sum(it["sample_s"] for it in iters),
+               learn_s=learn_s)
+    wm_loss = res["learners"].get("wm_loss", float("inf"))
+    if not rets or not max(rets[-10:]) > DREAMER_BAR or \
+            not wm_loss < DREAMER_WM_BAR:
+        fail(f"24b: DreamerV3's max of the last 10 mean returns not > "
+             f"{DREAMER_BAR} or wm_loss {wm_loss} not < {DREAMER_WM_BAR}: "
+             f"{rets[-10:]}")
+    return out
+
+
+def dreamer_phase(torch, rt, kernels, card: str) -> dict:
+    """Phase 24 in a fresh session: the runners start with the phase, 24a's
+    parity runs while they come up, then 24b trains. chip_smoke's launch
+    counts must stay 0 (DreamerV3 reaches no kernel of the four)."""
+    import glob
+
+    t_phase = time.perf_counter()
+    out: dict = {}
+    algo = None
+    try:
+        sid = rt.init(**RL2_SESSION)["session_id"]
+        from ray_tpu_torch import rllib
+
+        t0 = time.perf_counter()
+        algo = dreamer_cfg(rllib).build()
+        ready = Ready(rt, algo.runners, t0)
+        zero(kernels)
+        out["24a"] = dreamer_parity_24a(torch, algo.config)
+        out["24a"]["launches"] = counts(kernels)
+        t1 = time.perf_counter()
+        out["24b"] = dreamer_24b(torch, rt, kernels, algo, ready)
+        out["24b"]["sub_phase_s"] = time.perf_counter() - t1
+    finally:
+        if algo is not None:
+            algo.stop()
+        rt.shutdown()
+    for part in ("24a", "24b"):
+        if any(out[part]["launches"].values()):
+            fail(f"24 {part}: DreamerV3 launched a kernel: "
+                 f"{out[part]['launches']}")
+    out["launches"] = out["24b"]["launches"]
+    left = glob.glob(f"/dev/shm/rtpt_{sid}*")
+    if left:
+        fail(f"24: shm segments of the session left: {sorted(left)}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    a, b = out["24a"], out["24b"]
+
+    def upd(r):
+        return (f"{r['update_ms_median']:.3f} ms median, "
+                f"{r['update_ms_mean']:.3f} mean ({r['updates']} updates)")
+
+    print(f"dreamerv3 on {card}: returns "
+          + ", ".join(f"{r:.1f}" for r in b["returns"])
+          + f"; best of last 10 {b['best_last10']:.2f}, wm_loss "
+          f"{b['last_result']['wm_loss']:.4f}; world-model update "
+          f"{upd(b['world_model'])}, dream update {upd(b['dream'])}; "
+          f"sample {b['sample_s']:.3f} s, learn {b['learn_s']:.3f} s; card "
+          f"vs CPU {a['max_abs_err']:.3g}, {a['indices_differing']} of "
+          f"{a['indices']} indices differ; runners ready "
+          + ", ".join(f"{s:.3f}" for s in b["runner_ready_s"])
+          + f" s; phase 24 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 # ----------------------------------------------------------------- phase 11
 
 TP = 2
@@ -8464,7 +8725,8 @@ def main() -> int:
                 "pip_env_actor": {}, "autoscaled_actor": {},
                 "job_serve": {}, "llm_bench": {}, "rl_ppo": {}, "rl_dqn": {},
                 **{f"rl_{a}": {} for a in ("impala", "appo", "sac", "bc",
-                                           "marwil", "cql", "iql")},
+                                           "marwil", "cql", "iql",
+                                           "dreamerv3")},
                 "mesh_train": {}, "serve_tp_rank0": {}, "serve_tp_rank1": {}}
     if not args.only_kernels:
         from ray_tpu_torch.models import llama, mixtral, transformer
@@ -8621,6 +8883,11 @@ def main() -> int:
         rl2 = rl2_phase(torch, ray_tpu_torch, all_kernels, card)
         launches.update(rl2["launches"])
         print(json.dumps({"card": card, "rllib_part_two": rl2}), flush=True)
+        # phase 24: DreamerV3, its learner on the card, in a fresh session
+        dreamer = dreamer_phase(torch, ray_tpu_torch, all_kernels, card)
+        launches["rl_dreamerv3"] = dreamer["launches"]
+        print(json.dumps({"card": card, "rllib_dreamerv3": dreamer}),
+              flush=True)
         # phase 11: multi-GPU on the one card
         meshed = mesh_train(torch, all_kernels)
         launches["mesh_train"] = meshed["launches"]

@@ -6,16 +6,16 @@ card (``.learners(device=)``; None is the card) and the env runners are CPU
 actors with their own CPU copy of the module.)
 
 Ported: the core, PPO (with its multi-agent path), DQN, IMPALA, APPO, SAC,
-BC, MARWIL, CQL and IQL. DreamerV3 raises, naming its ROADMAP.md item,
-where a user reaches it.
+BC, MARWIL, CQL, IQL and DreamerV3.
 """
 
-from ray_tpu_torch.exceptions import _not_ported
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.algorithms.appo import APPO, APPOConfig
 from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
 from ray_tpu_torch.rllib.algorithms.dqn import DQN, DQNConfig
+from ray_tpu_torch.rllib.algorithms.dreamerv3 import (DreamerV3,
+                                                      DreamerV3Config)
 from ray_tpu_torch.rllib.algorithms.impala import IMPALA, IMPALAConfig
 from ray_tpu_torch.rllib.algorithms.iql import IQL, IQLConfig
 from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
@@ -35,15 +35,8 @@ from ray_tpu_torch.rllib.multi_rl_module import (MultiRLModuleSpec,
                                                  RLModuleSpec, init_multi)
 from ray_tpu_torch.rllib.replay import ReplayBuffer
 
-# the JAX package's algorithm not ported yet (ROADMAP.md Queue 1 item 14)
-NOT_PORTED = ("DreamerV3", "DreamerV3Config")
-
-
-def __getattr__(name):
-    if name in NOT_PORTED:
-        raise _not_ported(f"ray_tpu_torch.rllib.{name}", "item 14")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
+# every algorithm of the JAX package is ported
+NOT_PORTED = ()
 
 __all__ = [
     "Algorithm",
@@ -56,6 +49,8 @@ __all__ = [
     "CQLConfig",
     "DQN",
     "DQNConfig",
+    "DreamerV3",
+    "DreamerV3Config",
     "IMPALA",
     "IMPALAConfig",
     "IQL",

@@ -368,11 +368,12 @@ _ALLOWED = {
     # group's teardown sweeps on past a runner already dead
     ("silent-swallow", "rllib/env_runner.py", "EnvRunnerGroup._collect"),
     ("silent-swallow", "rllib/env_runner.py", "EnvRunnerGroup.shutdown"),
-    # IMPALA and SAC (baseline.txt's rllib/algorithms entries): a runner
-    # being replaced or torn down may already be dead
+    # IMPALA, SAC and DreamerV3 (baseline.txt's rllib/algorithms
+    # entries): a runner being replaced or torn down may already be dead
     ("silent-swallow", "rllib/algorithms/impala.py", "IMPALA._restart"),
     ("silent-swallow", "rllib/algorithms/impala.py", "IMPALA.stop"),
     ("silent-swallow", "rllib/algorithms/sac.py", "SAC.stop"),
+    ("silent-swallow", "rllib/algorithms/dreamerv3.py", "DreamerV3.stop"),
 }
 _CHECKS = ("shm-lifecycle", "resource-leak", "blocking-under-lock",
            "lock-order", "guarded-attr", "silent-swallow")
@@ -434,7 +435,7 @@ _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
                 "util/multiprocessing/pool.py", "util/joblib/__init__.py",
                 "util/dask/__init__.py", "rllib/env_runner.py",
                 "rllib/multi_agent_runner.py", "rllib/algorithms/impala.py",
-                "rllib/algorithms/sac.py")
+                "rllib/algorithms/sac.py", "rllib/algorithms/dreamerv3.py")
 
 
 def test_graft_check_invariants_hold_on_the_ports_host_modules():

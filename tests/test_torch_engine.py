@@ -314,6 +314,7 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.rllib.algorithms.marwil\n"
         "import ray_tpu_torch.rllib.algorithms.cql\n"
         "import ray_tpu_torch.rllib.algorithms.iql\n"
+        "import ray_tpu_torch.rllib.algorithms.dreamerv3\n"
         "import ray_tpu_torch.util.collective\n"
         "import ray_tpu_torch.util.collective.collective\n"
         "import ray_tpu_torch.util.collective.quantization\n"

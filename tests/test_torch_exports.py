@@ -63,9 +63,8 @@ ALLOWED = {
         **{n: "port: submodules the reference keeps outside __all__"
            for n in ("convert", "decoding", "decoding_paged")},
     },
-    "rllib": {
-        n: "item 14: RLlib's last algorithm, DreamerV3"
-        for n in ("DreamerV3", "DreamerV3Config")},
+    # every name of the reference's rllib, DreamerV3 included
+    "rllib": {},
     "ops": {
         "flash_attention": "port: the name is the kernel's submodule; the "
                            "function is FlashAttention / "

@@ -930,18 +930,18 @@ def test_left_out_paths_raise_naming_their_roadmap_item(pkgs):
         return 1
 
     w = worker._global_worker or rt._private.api._get_worker()
-    # C++ workers (item 22) are ported; DreamerV3, the RLlib algorithm
-    # held back (item 14), refuses where a user reaches it
+    # C++ workers (item 22) and DreamerV3 (item 14) are ported: both
+    # names resolve to the port's classes, and nothing of RLlib refuses
     import importlib
 
     rllib = importlib.import_module("ray_tpu_torch.rllib")
-    cases = {
-        "item 14": [lambda: rllib.DreamerV3Config, lambda: rllib.DreamerV3],
-    }
-    for item, calls in cases.items():
-        for call in calls:
-            msg = _refused(call)
-            assert msg and f"ROADMAP.md Queue 1 {item}" in msg, (item, msg)
+    from ray_tpu_torch.rllib.algorithms import dreamerv3
+
+    assert rllib.DreamerV3 is dreamerv3.DreamerV3
+    assert rllib.DreamerV3Config is dreamerv3.DreamerV3Config
+    assert rllib.DreamerV3Config.algo_class is rllib.DreamerV3
+    assert _refused(lambda: rllib.DreamerV3Config().algo_class) is None
+    assert rllib.NOT_PORTED == ()
     assert callable(rt.cpp_function("add").remote)
     # multi-host (item 17) is ported: a copy on an unreachable host is a
     # failed pull (False), not a refusal, and a native server on a
