@@ -202,11 +202,11 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       imports, its CUDA context and the model build; the replica's weights
       equal phase 4's.
    b. 8 byte-tokenized prompts of phase 4's lengths, one at a time, as
-      ``POST /llm/v1/completions`` (greedy, 32 tokens): token ids (read in
+      ``POST /llm/v1/completions`` (greedy, 16 tokens): token ids (read in
       the replica), text and token counts equal an in-process
       ``LLMEngine`` serving each prompt alone on phase 10's weights.
    c. The same 8 prompts at once plus one SSE stream: each completes with
-      the OpenAI shape and at most 32 tokens (agreement with 14b is
+      the OpenAI shape and at most 16 tokens (agreement with 14b is
       reported: batch composition changes bf16 results); then the stream
       alone, whose chunks join to 14b's text of its prompt and whose ids
       equal 14b's.
@@ -235,7 +235,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       tokens): the ids read in the decode replica equal an in-process
       ``LLMEngine`` on ``_pd_engine_kwargs`` serving each prompt alone
       (with, per prompt, how far ``prefill_batch`` at B = 1 and
-      ``decoding.prefill`` are apart); 32 tokens, 0 < ttft_s <=
+      ``decoding.prefill`` are apart); 16 tokens, 0 < ttft_s <=
       total_time_s.
    c. The 8 at once plus an SSE stream (the proxy's reply shapes), the
       stream alone (its chunks join to 15b's text), then a client dropped
@@ -263,7 +263,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
    store large enough for 16b's blocks; both restored after.
    a. ``build_llm_processor`` with phase 14's config (Llama-3-8B at full
       width, bf16, seed 0, phase 4's engine options), ``concurrency=1``,
-      greedy with 32 tokens and the byte EOS; its actor class swapped for
+      greedy with 16 tokens and the byte EOS; its actor class swapped for
       a probing subclass defined here. The actor's weights equal phase
       4's. 1: phase 14's 8 prompts at ``batch_size=1``: the ids read in
       the actor and the text equal in-process serving of each prompt
@@ -277,7 +277,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       tokens/s; launches in the actor: flash forward 32 x its prefills,
       ragged 32 x its decode steps, no backward, and none in the driver.
    b. 2,048 uint8 rows of [224, 224, 3] (0.3 GB, numpy seed) through
-      ``from_numpy`` in 8 blocks of 256; a ``map_batches`` stage of a
+      ``from_numpy`` in 4 blocks of 256; a ``map_batches`` stage of a
       callable class with ``num_gpus=1`` and ``concurrency=1`` normalizes
       each batch on the card and in numpy in its worker: one device
       visible, within 1e-6. Then ``iter_device_batches(device="cuda",
@@ -300,23 +300,23 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       in-process run goes first and is freed before ``fit()``), its
       launches are phase 6's formula, ``Result.metrics`` holds the last
       loss; ``fit()``'s time and the worker's start-up split.
-   b. GPT-2 124M, 8 steps at batch 8 x 1024 (step k's rows from numpy seed
+   b. GPT-2 124M, 4 steps at batch 8 x 1024 (step k's rows from numpy seed
       k), a checkpoint of params and AdamW state every 2 steps,
       ``FailureConfig(max_failures=1)``, ``CheckpointConfig(num_to_keep=
-      2)``: the first attempt SIGKILLs its own worker in step 5, the second
-      restores step 4's checkpoint; steps 5-8 equal an uninterrupted
+      1)``: the first attempt SIGKILLs its own worker in step 3, the second
+      restores step 2's checkpoint; steps 3-4 equal an uninterrupted
       in-process run bit for bit, the attempts are errored then finished,
-      the result's checkpoint is step 8's, two committed checkpoints are
-      left, no storage retry.
+      the result's checkpoint is step 4's, and it is the one committed
+      checkpoint left: retention deleted step 2's. No storage retry.
    c. Two workers with half the card each, ``ZeroShardedOptimizer`` over
-      the host ring, 3 steps of GPT-2 on the halves of 17b's batches: f32
+      the host ring, 2 steps of GPT-2 on the halves of 17b's batches: f32
       AdamW uncompressed, then int8 AdamW with int8 gradients, held as
       tests/test_zero.py holds them to an unsharded in-process baseline
       stepping with the mean gradient (ranks equal, params within rtol
       1e-4 / atol 1e-6 and loss within rtol 1e-4 for f32, loss within rtol
       0.1 for int8, the opt-state gauge under 0.62 x the baseline's).
    d. ``Tuner`` over a ``TorchTrainer`` (one worker with half the card), a
-      grid of two rates run at once, 3 steps: two results without error,
+      grid of two rates run at once, 2 steps: two results without error,
       each first loss equal to 17b's first step bit for bit, the best
       result the lower last loss, each worker's launches phase 6's formula.
    After ``shutdown()`` no segment of the session is left.
@@ -341,7 +341,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       consumer's get ms.
    b. ``InputNode -> Engine.generate -> Post.ids``, the engine a
       ``num_gpus=1`` actor holding an ``LLMEngine`` (paged, phase 4's
-      options, greedy, 32 tokens), ``Post`` a CPU actor, compiled with 64
+      options, greedy, 16 tokens), ``Post`` a CPU actor, compiled with 64
       KiB channels: on the channel plane (a fallback fails), phase 4's 8
       prompts one after the other and then 8 in flight token-exact to an
       in-process engine serving each prompt alone; flash = 32 x prefills
@@ -350,7 +350,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       ``rtpt_chan_*`` segment.
    c. A chain of 4 actors sharing the card (``num_gpus=0.25``), each
       ``x + 1`` on a bf16 CUDA tensor of 16 KiB and of 16 MiB: every step
-      equals ``x + 4`` exactly; the compiled step's median over 50 steps
+      equals ``x + 4`` exactly; the compiled step's median over 25 steps
       beside the same chain through ``.remote()``, and the 16 MiB
       payload's GB/s.
    After ``shutdown()`` no segment of the session is left.
@@ -376,8 +376,8 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       the pull's bytes, ms and GB/s, split into the transfer and the
       write into the driver's store.
    b. A 256 MiB bf16 CUDA tensor put on host-1 (its object address
-      ``native:...``) and one put on host-2, each pulled by the driver, two
-      rounds alternating: bytes sha256-equal to the maker's; prints each
+      ``native:...``) and one put on host-2, each pulled by the driver:
+      bytes sha256-equal to the maker's; prints each
       plane's pull GB/s and its transfer / store-write split.
    c. host-2 is removed; a ``num_gpus=1, max_retries=1`` prefill with a
       soft affinity to host-1 is running there when ``remove_host``
@@ -398,15 +398,16 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       runtime-env agent builds (``--system-site-packages`` and the .pth
       bridge give it the machine's CUDA torch), imports the package, sees
       the env var and the card, and runs ``follower_serve``'s body:
-      Llama-3-8B from the seed, token, KV and logits bytes and phase 4's
-      ids equal in-process serving's, flash and ragged launched in its
+      Llama-3-8B from the seed, token, KV and logits bytes and the ids of
+      the last 4 of phase 4's prompts equal in-process serving's, flash
+      and ragged launched in its
       worker only. A second actor of the same spec boots from the cache
       (same prefix, no rebuild); a plain task does not see the package.
       Prints the venv's build time, the cached boot and the first token.
    b. A session whose head has no GPU and a monitor process
       (``python -m ray_tpu_torch._private.monitor``, provider ``local``,
       node type ``gpu`` = {CPU: 2, GPU: 1}, at most one node, idle timeout
-      10 s, drain 1 s): the same pending actor makes the monitor launch a
+      3 s, drain 1 s): the same pending actor makes the monitor launch a
       follower host (``as-gpu-*``), whose own runtime-env agent builds the
       env (a venv base of its own); the actor serves there as in 20a.
       After the actor is killed the node idles, drains and is terminated
@@ -415,6 +416,21 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       segment of the host is left and the card's memory is back. Prints
       demand to create_node, to the join, to the actor ready and to the
       first token, and idle to terminated.
+   c. A session whose head has no GPU and an in-process ``Autoscaler``
+      over ``GceGpuNodeProvider(RestGceGpuApi(transport=...))`` with
+      ``gpu_vm_node_type("a3-highgpu-1g", cpus=2, max_nodes=1)``. The
+      transport is a fake of Compute v1's instances and zone operations
+      (``FakeCompute`` below): its insert runs the request's
+      ``startup-script`` unchanged under bash in a process group of its
+      own, ``python`` on PATH the running interpreter; its delete SIGKILLs
+      that group. A pending ``num_gpus=1`` actor lands on ``<vm>-w0``, the
+      host the script's node agent joins as, and runs the flash forward on
+      [1,32,1024,128] causal bf16: one launch counted in the actor, none
+      in the driver, within phase 2's bounds of the plain version. After
+      the kill the VM drains and the reconciler deletes it; no process of
+      it and, after shutdown, no segment of the session is left. Prints
+      the REST calls in order and demand to insert, to the join and to the
+      result, and the kill to the delete.
 21. The ops plane (after phase 20, before phase 11), every process started
    as a user starts it, in a fresh ``TMPDIR``: the port's CLI, a job, the
    dashboard. chip_smoke's own launch counts are zeroed before the phase
@@ -446,7 +462,7 @@ Phases, each of which exits non-zero on failure (nothing is caught):
       its JSON lines; the card's free memory is back within 1 GiB; after
       SIGINT the head has exited 0 and no segment or worker of the
       session is left.
-   e. ``microbenchmark --min-seconds 0.5``, ``python -m
+   e. ``microbenchmark --min-seconds 0.25``, ``python -m
       ray_tpu_torch.scripts.llm_bench`` (on the card: d_model 1024, 8
       layers, bf16, paged; both serving kernels launched, no backward)
       and ``serve_bench``; every record printed; their artifacts under
@@ -541,6 +557,8 @@ import argparse
 import gc
 import json
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -2502,7 +2520,11 @@ def runtime_checks(torch, rt, card: str, phase4: dict, prepare=None) -> dict:
 
 # ----------------------------------------------------------------- phase 14
 
-HTTP_MAX_TOKENS = 32
+# every request of phases 14-21 and its in-process expectation: cut from
+# 32 to make room on a slower host (the script took 943.0 s on one H100
+# host and 1179.9 s on another, PERF.md); every gate still compares each
+# token
+HTTP_MAX_TOKENS = 16
 HTTP_STREAM_PROMPT = 3          # 14c's SSE stream: the 300-token prompt
 
 
@@ -2929,7 +2951,7 @@ PD_WAIT_S_HTTP = 60.0
 def pd_expected(torch, cfg, params) -> dict:
     """What 15b must return: an in-process LLMEngine on _pd_engine_kwargs of
     phase 15's engine options (the PD pools' shapes) and phase 10's
-    weights, serving each prompt alone, greedy, 32 tokens, no stop token
+    weights, serving each prompt alone, greedy, 16 tokens, no stop token
     (the PD proxy passes none). Beside it, per prompt, how far the prefill
     tier's call (``prefill_batch`` at B = 1) and the engine's
     (``decoding.prefill``) are apart in bf16 logits. Run while phase 10's
@@ -3519,7 +3541,7 @@ BATCH_ROWS = 64                 # 16a's JSONL rows
 BATCH_SIZE = 16                 # 16a's processor batch
 IMG_SHAPE = (224, 224, 3)       # 16b's uint8 image rows
 IMG_BATCH = 256
-IMG_BATCHES = 8                 # cut from 16 to make room for phase 23
+IMG_BATCHES = 4                 # cut from 16 to 8 for phase 23, to 4 for 20c
 IMG_MEAN = (0.485, 0.456, 0.406)
 IMG_STD = (0.229, 0.224, 0.225)
 NORM_TOL = 1e-6                 # the card's f32 normalization vs numpy's
@@ -3537,7 +3559,7 @@ def batch_texts() -> list[str]:
 
 
 def batch_sampling() -> dict:
-    """The processor's sampling: phase 14's (greedy, 32 tokens, the byte
+    """The processor's sampling: phase 14's (greedy, 16 tokens, the byte
     EOS as stop token)."""
     from ray_tpu_torch.llm import ByteTokenizer
 
@@ -4024,15 +4046,19 @@ TRAIN_ENV = {
     "RAY_TPU_TORCH_STORE_CAPACITY": str(8 << 30)}
 TRAIN_LR, TRAIN_WD = 1e-4, 0.01          # phase 6's adamw
 T17_BATCH, T17_STEPS = 4, 4              # 17a: Llama-3.2-1B, 4 x 2048
-GPT2_BATCH, GPT2_SEQ, GPT2_STEPS = 8, 1024, 8   # 17b
-KILL_STEP, CKPT_EVERY, CKPT_KEEP = 5, 2, 2
-ZERO_STEPS = 3                           # 17c
+# 17b: 4 steps, killed in step 3 (cut from 8 and 5 to make room for 20c:
+# one checkpoint before the kill and one after it, as before). Keeping 1
+# (was 2) so that the 2 checkpoints still drive retention: step 4's
+# commit deletes step 2's, the one the second attempt restored
+GPT2_BATCH, GPT2_SEQ, GPT2_STEPS = 8, 1024, 4
+KILL_STEP, CKPT_EVERY, CKPT_KEEP = 3, 2, 1
+ZERO_STEPS = 2                           # 17c: cut from 3 for 20c
 # (kind, gradient compression, rate): f32 at tests/test_zero.py's rate;
 # int8 at phase 6's. On random tokens GPT-2 diverges at 1e-2 (f32 loss up
 # ~1.8 in 3 steps), and the two int8 runs then diverge apart (sharded 38.5
 # against unsharded 14.8, PERF.md §6): loss parity there compares noise
 ZERO_RUNS = (("fp32", None, 1e-2), ("int8", "int8_block", TRAIN_LR))
-TUNE_STEPS, TUNE_LRS = 3, (1e-4, 1e-3)   # 17d
+TUNE_STEPS, TUNE_LRS = 2, (1e-4, 1e-3)   # 17d: steps cut from 3 for 20c
 
 
 def gpt2_train_config():
@@ -4463,9 +4489,9 @@ def train_fit_17a(torch, rt, kernels, card: str, root: str,
 
 def train_resume_17b(torch, rt, kernels, card: str, root: str,
                      prepare=None) -> dict:
-    """17b: an uninterrupted in-process run of the 8 steps, then the same
-    loop under FailureConfig(max_failures=1), killed in step 5 and resumed
-    from step 4's checkpoint."""
+    """17b: an uninterrupted in-process run of the GPT2_STEPS steps, then
+    the same loop under FailureConfig(max_failures=1), killed in step
+    KILL_STEP and resumed from the checkpoint of the step before."""
     from ray_tpu_torch import train as tr
     from ray_tpu_torch.train import storage
 
@@ -4512,11 +4538,15 @@ def train_resume_17b(torch, rt, kernels, card: str, root: str,
              f"{KILL_STEP - 1}")
     names = committed_only(storage, os.path.join(exp, "run"))
     last = f"checkpoint_{GPT2_STEPS - 1:06d}"
-    if len(names) != CKPT_KEEP or result.checkpoint is None or \
+    # written: the one the second attempt restored, and its own saves
+    written = int(restore.get("step") is not None) + len(m.get("saves") or [])
+    if written <= CKPT_KEEP or len(names) != CKPT_KEEP or \
+            names[-1] != last or result.checkpoint is None or \
             os.path.basename(result.checkpoint.path) != last:
-        fail(f"17b: checkpoints on disk {names}, Result.checkpoint "
-             f"{getattr(result.checkpoint, 'path', None)}; expected "
-             f"{CKPT_KEEP} with the last {last}")
+        fail(f"17b: {written} checkpoints written, on disk {names}, "
+             f"Result.checkpoint {getattr(result.checkpoint, 'path', None)};"
+             f" expected more written than kept, and {CKPT_KEEP} kept with "
+             f"the last {last}")
     if result.storage_retries != 0:
         fail(f"17b: storage_retries {result.storage_retries}")
     want_launches = train_launches(cfg, GPT2_STEPS - KILL_STEP + 1)
@@ -4533,6 +4563,7 @@ def train_resume_17b(torch, rt, kernels, card: str, root: str,
     saves = m.get("saves") or []
     out = {"fit_s": fit_s, "attempts": result.attempts, "losses": resumed,
            "ref_losses": ref, "checkpoints": names,
+           "checkpoints_written": written,
            "kill_to_first_step_s": restore["t_first_step"] - t_kill,
            "restore_s": restore["s"], "restore_GBps":
            restore["bytes"] / restore["s"] / 1e9, "saves": saves,
@@ -4548,7 +4579,8 @@ def train_resume_17b(torch, rt, kernels, card: str, root: str,
           f"{saves[-1]['save_s']:.3f} s, persist {saves[-1]['persist_s']:.3f}"
           f" s ({gb / saves[-1]['persist_s']:.3f} GB/s), restore "
           f"{restore['s']:.3f} s ({out['restore_GBps']:.3f} GB/s); steps "
-          f"{KILL_STEP}-{GPT2_STEPS} bit-equal to the uninterrupted run",
+          f"{KILL_STEP}-{GPT2_STEPS} bit-equal to the uninterrupted run; "
+          f"{written} checkpoints written, {len(names)} kept",
           flush=True)
     return out
 
@@ -4758,9 +4790,9 @@ DEV_PROMPT = 1024                # 18a's prompt, one bucket
 DEV_MARKERS_MAX = 64 << 10       # the result object in the driver's store
 DEV_MEM_SLACK = 1 << 20          # the producer's memory after the free
 DEV_FREE_S = 15.0
-DAG_BUFFER = 64 << 10            # 18b's channels: a prompt's or 32 ids
+DAG_BUFFER = 64 << 10            # 18b's channels: a prompt's or 16 ids
 CHAIN_STAGES = 4                 # 18c
-CHAIN_STEPS = 50                 # cut from 200 to make room for phase 23
+CHAIN_STEPS = 25                 # cut from 200 to 50 for phase 23, 25 for 20c
 CHAIN_SIZES = (16 << 10, 16 << 20)   # 18c's bf16 payloads, in bytes
 
 
@@ -4964,7 +4996,7 @@ def device_consumer(prepare=None):
 def dag_engine_actor(prepare=None):
     """18b's engine actor class: an LLMEngine on the paged layout, built as
     phase 14's replica builds its engine (Llama-3-8B, phase 10's weights
-    from the seed); `generate` serves one prompt greedily, 32 tokens."""
+    from the seed); `generate` serves one prompt greedily, 16 tokens."""
 
     class Engine:
         def __init__(self):
@@ -5368,7 +5400,7 @@ HOST_ENV = {
 NATIVE_ENV = {"RAY_TPU_TORCH_STORE_BACKEND": "file",
               "RAY_TPU_TORCH_OBJECT_SERVER_BACKEND": "native"}
 PULL_BYTES = 256 << 20           # 19b's bf16 tensor
-PULL_ROUNDS = 2                  # 19b: native, python, native, python
+PULL_ROUNDS = 1                  # 19b: native, python (cut from 2 for 20c)
 HOST_MEM_SLACK = 1 << 30         # 19c: the card's free memory after shutdown
 LOST_ELEMS = 1 << 20             # 19c: an f32 object only host-1 holds
 HOST_WAIT_S = 900.0
@@ -5378,11 +5410,12 @@ def host_id() -> str:
     return os.environ.get("RAY_TPU_TORCH_HOST_ID", "host-0")
 
 
-def follower_serve(prepare=None):
+def follower_serve(prepare=None, n_prompts: int | None = None):
     """19a's task body (pickled by value into a num_gpus=1 worker on
     host-1): Llama-3-8B from the seed (phase 10's weights), 18a's prefill,
-    then an LLMEngine with phase 14's options serving phase 4's prompts
-    greedily, each alone (as ``dag_expected`` does in process). Returns the
+    then an LLMEngine with phase 14's options serving phase 4's prompts (or
+    the last `n_prompts` of them) greedily, each alone (as ``dag_expected``
+    does in process). Returns the
     KV and the logits as CUDA tensors, with the ids, the weights'
     fingerprints, the engine's counters and this worker's launch counts."""
 
@@ -5410,7 +5443,9 @@ def follower_serve(prepare=None):
         eng = LLMEngine.from_config(built)
         try:
             sp = SamplingParams(max_tokens=HTTP_MAX_TOKENS, temperature=0.0)
-            ids = [eng.generate(p, sp) for p in phase4_prompts(cfg.vocab_size)]
+            prompts = phase4_prompts(cfg.vocab_size)
+            ids = [eng.generate(p, sp)
+                   for p in prompts[-(n_prompts or len(prompts)):]]
             st = eng.stats()
         finally:
             eng.shutdown()
@@ -5652,7 +5687,7 @@ def serve_from_follower_19a(torch, rt, card: str, expected: dict,
 def both_planes_19b(torch, rt, card: str, prepare=None) -> dict:
     """19b: a 256 MiB bf16 CUDA tensor put on host-1 (file store, C++
     server) and on host-2 (arena, Python server), each pulled by the
-    driver, alternating; bytes sha256-equal on both ends."""
+    driver, PULL_ROUNDS rounds; bytes sha256-equal on both ends."""
     from ray_tpu_torch.util.scheduling_strategies import (
         NodeAffinitySchedulingStrategy)
 
@@ -5863,12 +5898,22 @@ def multihost_phase(torch, rt, card: str, expected: dict, fps10: dict,
 PIP_PKG = "rtpt_probe_pkg"      # 20's local package, installed offline
 ENV_PROBE = ("RTPT_PHASE20_PROBE", "pip-env")
 ENV_WAIT_S = 300.0              # 20: an env actor's boot or serve call
+# 20a and 20b serve the last 4 of phase 4's 8 prompts (700-1500 tokens;
+# cut from all 8 to make room for 20c)
+AS_PROMPTS = 4
 AS_INTERVAL_S = 0.5             # 20b: the monitor's reconcile interval
-AS_IDLE_S = 10.0                # 20b: idle time before scale-down
+# 20b and 20c: idle time before scale-down; cut from 10 s to make room
+# for 20c
+AS_IDLE_S = 3.0
 AS_DRAIN_S = 1.0                # 20b: the drain window before terminate
 # 20b: from the actor's kill to the node's termination, at most the idle
 # timeout, the drain window, the agent's orderly stop and a few passes
 AS_TERM_LIMIT_S = AS_IDLE_S + AS_DRAIN_S + 10.0 + 8 * AS_INTERVAL_S
+GCE_MACHINE = "a3-highgpu-1g"   # 20c: the VM's machine type (one H100)
+GCE_PROJECT, GCE_ZONE = "chip-smoke", "us-central1-a"   # 20c: the fake's
+# 20c: the boot image the insert names; the fake boots nothing from it
+GCE_IMAGE = f"projects/{GCE_PROJECT}/global/images/torch-h100"
+GCE_SEED = SEED + 20            # 20c: the flash forward's inputs
 
 
 def write_probe_pkg(root: str) -> str:
@@ -5932,7 +5977,7 @@ def env_server(prepare=None):
             LLMEngine.generate = generate
             t0 = time.time()
             try:
-                res = follower_serve(prepare)()
+                res = follower_serve(prepare, AS_PROMPTS)()
             finally:
                 LLMEngine.generate = plain_generate
             out = {k: res[k] for k in ("ids", "fingerprints", "launches",
@@ -5988,7 +6033,8 @@ def env_get(rt, ref, tag: str, timeout: float = ENV_WAIT_S):
 def check_served(tag: str, res: dict, expected: dict, fps10: dict,
                  driver_launches: dict) -> None:
     """20a's and 20b's gates on a served result: phase 10's weights, the
-    in-process token, KV and logits bytes and ids, and the launches of
+    in-process token, KV and logits bytes and the last AS_PROMPTS prompts'
+    ids, and the launches of
     both serving kernels in the actor's worker, none in the driver."""
     if res["fingerprints"] != fps10:
         fail(f"{tag}: the actor's weights differ from phase 10's")
@@ -5997,11 +6043,12 @@ def check_served(tag: str, res: dict, expected: dict, fps10: dict,
              f"{expected['token']}")
     if res["hashes"] != expected["hashes"]:
         fail(f"{tag}: KV or logits differ from in-process prefill's bytes")
-    if res["ids"] != expected["ids"]:
-        bad = [i for i, (a, b) in enumerate(zip(res["ids"], expected["ids"]))
-               if a != b]
+    want_ids = expected["ids"][-AS_PROMPTS:]
+    if res["ids"] != want_ids:
+        bad = [i for i, (a, b) in enumerate(zip(res["ids"], want_ids))
+               if a != b or len(res["ids"]) != len(want_ids)]
         fail(f"{tag}: the actor's ids differ from in-process serving at "
-             f"prompts {bad}")
+             f"prompts {bad} of the last {AS_PROMPTS}")
     L = res["n_layers"]
     want = {"flash_attention_fwd_bf16": L * (1 + res["prefills"]),
             "ragged_paged_attention_bf16": L * res["decode_steps"]}
@@ -6363,11 +6410,293 @@ def autoscaled_20b(torch, rt, card: str, expected: dict, fps10: dict,
     return out
 
 
+class FakeCompute:
+    """20c's Compute Engine: a fake of compute.googleapis.com v1's
+    instances (insert, delete, list, get) and zone operations, as a
+    transport for ``RestGceGpuApi``. An insert runs the request's
+    ``startup-script`` value unchanged under bash in a process group of its
+    own, with ``python`` on PATH the running interpreter; a delete SIGKILLs
+    that group, as a deleted VM loses everything on it. A VM reports
+    RUNNING from its insert to its delete, whatever its script does. Every
+    call is recorded with its wall time."""
+
+    def __init__(self, bin_dir: str, log_dir: str):
+        import threading
+
+        self.bin_dir = bin_dir
+        self.log_dir = log_dir
+        self.vms: dict = {}       # name → Popen of its startup script
+        self.scripts: dict = {}   # name → the script it ran
+        self.images: dict = {}    # name → its boot disk's source image
+        self.calls: list = []     # (wall time, method, path below the zone)
+        self.deleted: dict = {}   # name → wall time of its delete
+        self.n_ops = 0
+        self._lock = threading.Lock()
+
+    def _reply(self, obj, status: int = 200):
+        return status, json.dumps(obj).encode()
+
+    def __call__(self, method, url, headers, body, timeout):
+        zone = f"/projects/{GCE_PROJECT}/zones/{GCE_ZONE}/"
+        if zone not in url or headers.get("Authorization") != "Bearer token":
+            return self._reply({"error": {"message": f"bad call {url}"}}, 400)
+        tail = url.split(zone, 1)[1].split("?", 1)[0]
+        parts = tail.split("/")
+        with self._lock:
+            self.calls.append((time.time(), method, tail))
+            if parts[0] == "operations":
+                return self._reply({"name": parts[1], "status": "DONE"})
+            if method == "POST":
+                req = json.loads(body)
+                name = req["name"]
+                script, = [i["value"] for i in req["metadata"]["items"]
+                           if i["key"] == "startup-script"]
+                log = open(os.path.join(self.log_dir, f"vm-{name}.log"), "ab")
+                try:
+                    self.vms[name] = subprocess.Popen(
+                        ["bash", "-c", script], cwd=HERE, stdout=log,
+                        stderr=subprocess.STDOUT, start_new_session=True,
+                        env=dict(os.environ, PATH=os.pathsep.join(
+                            [self.bin_dir, os.environ.get("PATH", "")])))
+                finally:
+                    log.close()
+                self.scripts[name] = script
+                self.images[name] = [d["initializeParams"]["sourceImage"]
+                                     for d in req["disks"] if d["boot"]]
+                self.n_ops += 1
+                return self._reply({"name": f"operation-{self.n_ops}",
+                                    "operationType": "insert",
+                                    "status": "RUNNING"})
+            if len(parts) == 1:  # instances.list
+                return self._reply({"items": [
+                    {"name": n, "status": "RUNNING"} for n in self.vms]})
+            p = self.vms.get(parts[1])
+            if p is None:
+                return self._reply({"error": {
+                    "message": f"instance {parts[1]} not found",
+                    "errors": [{"reason": "notFound"}]}}, 404)
+            if method == "DELETE":
+                try:
+                    os.killpg(p.pid, signal.SIGKILL)
+                except OSError:
+                    pass
+                p.wait(timeout=30)
+                del self.vms[parts[1]]
+                self.deleted[parts[1]] = time.time()
+                self.n_ops += 1
+                return self._reply({"name": f"operation-{self.n_ops}",
+                                    "operationType": "delete",
+                                    "status": "DONE"})
+            return self._reply({"name": parts[1], "status": "RUNNING"})
+
+
+def python_on_path(bin_dir: str) -> None:
+    """``<bin_dir>/python`` runs this interpreter: an exec wrapper, since a
+    symlink to a virtualenv's interpreter loses the virtualenv."""
+    os.makedirs(bin_dir, exist_ok=True)
+    path = os.path.join(bin_dir, "python")
+    with open(path, "w") as f:
+        f.write(f'#!/bin/sh\nexec {sys.executable} "$@"\n')
+    os.chmod(path, 0o755)
+
+
+class VmFlash:
+    """20c's actor (``num_gpus=1``): the flash forward on 13b's shape and
+    seeded inputs, with this worker's launch counts and host."""
+
+    def __init__(self, prepare=None):
+        if prepare is not None:
+            prepare()
+
+    def run(self, seed: int) -> dict:
+        import torch
+
+        from ray_tpu_torch.ops import _build
+        from ray_tpu_torch.ops import flash_attention as fa
+
+        built = _build.build_all([fa.KERNEL.source])
+        kernels = loop_kernels()
+        (q, k, v), _ = kernel_inputs(torch, seed)
+        zero(kernels)
+        o, lse = fa._fwd_call(q, k, v, causal=True, scale=q.shape[-1] ** -0.5)
+        torch.cuda.synchronize()
+        return {"o": o, "lse": lse, "launches": counts(kernels),
+                "host": host_id(), "nvcc_built": sorted(built),
+                "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+                "device_name": torch.cuda.get_device_name(0)}
+
+
+def rest_calls(calls: list, t0: float) -> list:
+    """The REST calls in order, repeats of one call folded into a count:
+    [method, path, count, seconds after t0 of the first]."""
+    out = []
+    for t, method, path in calls:
+        if out and out[-1][:2] == [method, path]:
+            out[-1][2] += 1
+        else:
+            out.append([method, path, 1, round(t - t0, 3)])
+    return out
+
+
+def gce_vm_20c(torch, rt, card: str, prepare=None) -> dict:
+    """20c in a fresh session whose head has no GPU: an in-process
+    Autoscaler over the GCE GPU provider and its REST client, whose
+    transport is FakeCompute; a pending num_gpus=1 actor lands on the VM's
+    host and runs the flash forward; once it is killed the VM drains and
+    is deleted."""
+    import glob
+    import tempfile
+
+    from ray_tpu_torch._private.constants import EVENT_AUTOSCALER_INSTANCE
+    from ray_tpu_torch.autoscaler import (Autoscaler, GceGpuNodeProvider,
+                                          gpu_vm_node_type)
+    from ray_tpu_torch.autoscaler.gce_rest import RestGceGpuApi
+    from ray_tpu_torch.autoscaler.node_provider import AGENT_MODULE
+    from ray_tpu_torch.ops import flash_attention as fa
+    from ray_tpu_torch.util import state
+
+    out = {}
+    info = rt.init(num_cpus=4, num_gpus=0)
+    sid = out["session"] = info["session_id"]
+    node = rt._private.api._node
+    work = tempfile.mkdtemp(prefix="phase20c_", dir=node.session_dir)
+    python_on_path(os.path.join(work, "bin"))
+    cloud = FakeCompute(os.path.join(work, "bin"),
+                        os.path.join(node.session_dir, "logs"))
+    rest = RestGceGpuApi(GCE_PROJECT, GCE_ZONE, source_image=GCE_IMAGE,
+                         transport=cloud,
+                         token_provider=lambda: "token",
+                         gcs_address=node.address, op_poll_s=0.2)
+    provider = GceGpuNodeProvider(rest, project=GCE_PROJECT, zone=GCE_ZONE,
+                                  gcs_address=node.address,
+                                  cluster_name="chip")
+    nt = gpu_vm_node_type(GCE_MACHINE, cpus=2, max_nodes=1)
+    scaler = None
+    try:
+        scaler = Autoscaler(f"unix:{node.socket_path}", provider, [nt],
+                            interval_s=AS_INTERVAL_S,
+                            idle_timeout_s=AS_IDLE_S,
+                            drain_grace_s=AS_DRAIN_S).start()
+        kernels = loop_kernels()
+        zero(kernels)  # the main path starts here
+        t_submit = time.time()
+        a = rt.remote(num_gpus=1)(VmFlash).remote(prepare)
+        res = rt.get(a.run.remote(GCE_SEED), timeout=ENV_WAIT_S)
+        t_result = time.time()
+        out["driver_launches"] = counts(kernels)
+        host = res["host"]
+        joined = [e for e in state.list_events(etype="node.join")
+                  if e.get("node") == host]
+        vm = host.removesuffix("-w0")
+        t_kill = time.time()
+        rt.kill(a)
+        deadline = time.monotonic() + AS_TERM_LIMIT_S + 30
+        while vm not in cloud.deleted:
+            if time.monotonic() > deadline:
+                fail(f"20c: the VM {vm} was not deleted "
+                     f"{AS_TERM_LIMIT_S + 30:.0f} s after the kill")
+                break
+            time.sleep(0.05)
+        deadline = time.monotonic() + 10
+        while host_processes(host) and time.monotonic() < deadline:
+            time.sleep(0.1)  # SIGKILLed: the reparented children are reaped
+        out["left_processes"] = host_processes(host)
+        events = state.list_events(etype=EVENT_AUTOSCALER_INSTANCE)
+    finally:
+        if scaler is not None:
+            scaler.stop()
+        rt.shutdown()
+    out["left_segments"] = sorted(glob.glob(f"/dev/shm/rtpt_{sid}*"))
+    out["left_vms"] = sorted(cloud.vms)
+    # the plain version on the same seeded inputs, on the driver's card
+    (q, k, v), _ = kernel_inputs(torch, GCE_SEED)
+    o_ref, lse_ref = fa.flash_attention_forward_plain(
+        q.float(), k.float(), v.float(), causal=True,
+        scale=q.shape[-1] ** -0.5)
+    o_ref = o_ref.to(torch.bfloat16).float()
+    o, lse = res["o"], res["lse"]
+    calls = rest_calls(cloud.calls, t_submit)
+    inserts = [c for c in cloud.calls if c[1] == "POST"]
+    deletes = [c for c in cloud.calls if c[1] == "DELETE"]
+    t_insert = inserts[0][0] if inserts else None
+    t_join = joined[0]["ts"] if joined else None
+    out.update({
+        "vm": vm, "host": host, "machine_type": GCE_MACHINE,
+        "node_type": nt.name, "node_resources": nt.resources,
+        "launches": res["launches"], "nvcc_built": res["nvcc_built"],
+        "visible": res["visible"], "device_name": res["device_name"],
+        "startup_script": cloud.scripts.get(vm), "rest_calls": calls,
+        "max_abs_err": (o.float() - o_ref).abs().max().item(),
+        "lse_max_abs_err": (lse - lse_ref).abs().max().item(),
+        "demand_to_insert_s": (t_insert - t_submit) if t_insert else None,
+        "demand_to_join_s": (t_join - t_submit) if t_join else None,
+        "demand_to_result_s": t_result - t_submit,
+        "kill_to_delete_s": (cloud.deleted[vm] - t_kill
+                             if vm in cloud.deleted else None),
+        "instance_states": [e.get("to_state") for e in sorted(
+            events, key=lambda e: e["ts"])]})
+    want_script = (f"python -m {AGENT_MODULE} --address {node.address} "
+                   f"--host-id {vm}-w0")
+    if not vm.startswith(f"ray--chip--{nt.name}-"):
+        fail(f"20c: the actor ran on {host}, not on a VM's host")
+    if len(inserts) != 1 or len(deletes) != 1 or \
+            not deletes[0][2].endswith(f"instances/{vm}"):
+        fail(f"20c: inserts {inserts}, deletes {deletes}: one insert and "
+             f"one delete of {vm} were expected")
+    if cloud.images.get(vm) != [GCE_IMAGE]:
+        fail(f"20c: the VM's boot disks {cloud.images.get(vm)} are not "
+             f"[{GCE_IMAGE!r}]")
+    if want_script not in (out["startup_script"] or ""):
+        fail(f"20c: the VM's startup script {out['startup_script']!r} does "
+             f"not run {want_script!r}")
+    polls = [c for c in cloud.calls if c[2].startswith("operations/")]
+    if not polls or polls[0][0] < t_insert:
+        fail(f"20c: the insert's operation was not polled: {calls}")
+    if t_join is None:
+        fail(f"20c: no node.join event for {host}")
+    if not (isinstance(o, torch.Tensor) and o.is_cuda):
+        fail(f"20c: the forward came back as {type(o).__name__}")
+    if not torch.isfinite(o.float()).all():
+        fail("20c: non-finite output")
+    if not torch.allclose(o.float(), o_ref, atol=ATOL, rtol=RTOL):
+        fail(f"20c: max abs err {out['max_abs_err']} beyond atol = rtol = "
+             f"{ATOL}")
+    if out["lse_max_abs_err"] > LSE_TOL:
+        fail(f"20c: lse err {out['lse_max_abs_err']} beyond {LSE_TOL}")
+    del q, k, v, o_ref, lse_ref, o, lse, res
+    want = {s: 0 for s in out["launches"]}
+    want["flash_attention_fwd_bf16"] = 1
+    if out["launches"] != want:
+        fail(f"20c: the actor launched {out['launches']}, expected {want}")
+    if any(out["driver_launches"].values()):
+        fail(f"20c: launches in the driver: {out['driver_launches']}")
+    if out["kill_to_delete_s"] is not None and \
+            out["kill_to_delete_s"] > AS_TERM_LIMIT_S:
+        fail(f"20c: deleted {out['kill_to_delete_s']:.1f} s after the kill "
+             f"(limit {AS_TERM_LIMIT_S:.1f})")
+    if out["left_processes"]:
+        fail(f"20c: processes of {vm} left: {out['left_processes']}")
+    if out["left_segments"] or out["left_vms"]:
+        fail(f"20c: left after shutdown: segments {out['left_segments']}, "
+             f"VMs {out['left_vms']}")
+    print(f"20c REST calls: " + ", ".join(
+        f"{m} {p}" + (f" x{n}" if n > 1 else "") + f" (+{t:.3f} s)"
+        for m, p, n, t in calls), flush=True)
+    print(f"20c flash forward on a GCE VM's host ({host}, "
+          f"{GCE_MACHINE}) on {card}: demand to insert "
+          f"{out['demand_to_insert_s']:.3f} s, to the join "
+          f"{out['demand_to_join_s']:.3f} s, to the result "
+          f"{out['demand_to_result_s']:.3f} s; max abs err "
+          f"{out['max_abs_err']:.3g}, lse {out['lse_max_abs_err']:.3g}; "
+          f"kill to delete {out['kill_to_delete_s']:.3f} s", flush=True)
+    return out
+
+
 def autoscaler_phase(torch, rt, card: str, expected: dict, fps10: dict,
                      prepare=None) -> dict:
-    """Phase 20: 20a in a fresh session with one GPU, 20b in another with
-    none. After each, no segment of its session is left; after both, the
-    card's free memory is back within HOST_MEM_SLACK."""
+    """Phase 20: 20a in a fresh session with one GPU, 20b and 20c in
+    others with none. After each, no segment of its session is left; after
+    all three, the card's free memory is back within HOST_MEM_SLACK."""
     import glob
     import tempfile
 
@@ -6406,6 +6735,10 @@ def autoscaler_phase(torch, rt, card: str, expected: dict, fps10: dict,
             fail(f"20b: shm segments of the session left: {sorted(left)}")
         out["20b"]["sub_phase_s"] = time.perf_counter() - t0
         print(f"20b took {out['20b']['sub_phase_s']:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        out["20c"] = gce_vm_20c(torch, rt, card, prepare)
+        out["20c"]["sub_phase_s"] = time.perf_counter() - t0
+        print(f"20c took {out['20c']['sub_phase_s']:.1f} s", flush=True)
     finally:
         for k, v in saved.items():
             if v is None:
@@ -6439,7 +6772,8 @@ JOB_LINE = "PHASE21_JOB "        # prefix of the 21b job's JSON lines
 JOB_WAIT_S = 900.0               # 21b: the job's app up and its 8 requests
 JOB_MEM_SLACK = 1 << 30          # 21d: the card's free memory after the app
 PROFILE_S = 2.0                  # 21c: the replica's profile during a wave
-MICROBENCH_MIN_S = 0.5           # 21e: each core record's timing window
+# 21e: each core record's timing window (cut from 0.5 s for 20c)
+MICROBENCH_MIN_S = 0.25
 CLI_TIMEOUT_S = 300.0
 
 
@@ -8618,12 +8952,92 @@ def dryrun_tp(torch) -> dict:
             "rank0": res[0]}
 
 
+# phase 23 runs in a process of its own, beside the driver's phases 22, 24
+# and 11; none of those gates the card's free memory (19-21 do, and are
+# done by then)
+LANE_WAIT_S = 900.0
+
+
+def card_name() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def lane_main(torch, out_path: str) -> int:
+    """``--phase 23 --out <path>``: phase 23, its result to `path` as
+    JSON."""
+    import ray_tpu_torch
+
+    out = rl2_phase(torch, ray_tpu_torch, loop_kernels(), card_name())
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+class Lane:
+    """A phase in ``chip_smoke.py --phase``, started now and joined
+    later; its output goes to a file that `join` echoes, so no
+    line of it interleaves with the driver's."""
+
+    def __init__(self, name: str):
+        import tempfile
+
+        self.name = name
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_phase{name}_")
+        self.log = open(os.path.join(self.dir, "out.log"), "wb")
+        self.out = os.path.join(self.dir, "out.json")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase", name,
+             "--out", self.out], cwd=HERE, stdout=self.log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+
+    def join(self) -> dict:
+        try:
+            rc = self.proc.wait(timeout=LANE_WAIT_S)
+        except subprocess.TimeoutExpired:
+            rc = None
+        self.log.close()
+        with open(self.log.name, errors="replace") as f:
+            sys.stdout.write(f.read())
+        print(f"phase {self.name} in its own process: exit {rc} after "
+              f"{time.perf_counter() - self.t0:.1f} s", flush=True)
+        if rc != 0:
+            fail(f"phase {self.name} in its own process: exit {rc}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            except OSError:
+                pass
+            self.proc.wait(timeout=30)
+        if not self.log.closed:
+            self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-kernels", action="store_true",
                     help="stop after building and checking the kernels")
+    ap.add_argument("--phase", choices=["23"],
+                    help="run this phase alone (the script starts it in a "
+                    "process of its own)")
+    ap.add_argument("--out", help="--phase: where its result goes (JSON)")
     args = ap.parse_args()
     t_script = time.perf_counter()
+
+    def stamp(done: str) -> None:
+        """Where the script's clock stands: the phases before 14 print no
+        time of their own."""
+        print(f"{done} done at {time.perf_counter() - t_script:.1f} s of "
+              "script", flush=True)
 
     import torch
 
@@ -8635,14 +9049,13 @@ def main() -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.phase:
+        return lane_main(torch, args.out)
     from ray_tpu_torch.ops import _build
     from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import ragged_paged_attention as ra
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
+    card = card_name()
     print(card, flush=True)
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -8708,6 +9121,7 @@ def main() -> int:
                check_flash_bwd(torch, gen, 1, 128, 128, False, timed=False)]
     torch.cuda.empty_cache()
     print(json.dumps({"card": card, "kernel_checks": checks}), flush=True)
+    stamp("kernels built and checked")
 
     flash_kernels = [fa.KERNEL, fa.KERNEL_DKV, fa.KERNEL_DQ]
     # every path zeroes and reads all four counts
@@ -8723,6 +9137,7 @@ def main() -> int:
                 "device_producer": {}, "dag_engine": {},
                 "follower_engine": {}, "follower_retry": {},
                 "pip_env_actor": {}, "autoscaled_actor": {},
+                "gce_vm_actor": {},
                 "job_serve": {}, "llm_bench": {}, "rl_ppo": {}, "rl_dqn": {},
                 **{f"rl_{a}": {} for a in ("impala", "appo", "sac", "bc",
                                            "marwil", "cql", "iql",
@@ -8735,6 +9150,7 @@ def main() -> int:
                             "llama-3-8b random init bf16")
         torch.cuda.empty_cache()  # phase 3's model and pools are gone
         print(json.dumps({"card": card, "model_check": model}), flush=True)
+        stamp("phase 3")
         serving = serve(torch, all_kernels)
         launches["serve"] = serving["launches"]
         torch.cuda.empty_cache()
@@ -8742,9 +9158,11 @@ def main() -> int:
         print(f"serve on {card}: prefill {serving['prefill_ms_mean']:.3f} ms "
               f"mean, decode step {serving['decode_step_ms_mean']:.3f} ms "
               f"mean, {serving['tokens_per_s']:.1f} tokens/s", flush=True)
+        stamp("phase 4")
         grads = check_model_grads(torch, flash_kernels)
         torch.cuda.empty_cache()
         print(json.dumps({"card": card, "model_grads": grads}), flush=True)
+        stamp("phase 5")
         training = train(torch, all_kernels)
         launches["train"] = training["launches"]
         print(json.dumps({"card": card, "train": training}), flush=True)
@@ -8755,6 +9173,7 @@ def main() -> int:
               flush=True)
         del training
         torch.cuda.empty_cache()
+        stamp("phase 6")
         # phase 7: Mixtral-8x7B, full width, 16 of 32 layers
         moe_model = check_model(
             torch, mixtral.mixtral_config("8x7b", n_layers=MIXTRAL_LAYERS),
@@ -8762,6 +9181,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(json.dumps({"card": card, "moe_model_check": moe_model}),
               flush=True)
+        stamp("phase 7")
         # phase 8: serving Mixtral, the slice's main path
         moe_serving = serve(torch, all_kernels, "mixtral", "8x7b",
                             {"n_layers": MIXTRAL_LAYERS})
@@ -8773,6 +9193,7 @@ def main() -> int:
               f"prefill {moe_serving['prefill_ms_mean']:.3f} ms mean, decode "
               f"step {moe_serving['decode_step_ms_mean']:.3f} ms mean, "
               f"{moe_serving['tokens_per_s']:.1f} tokens/s", flush=True)
+        stamp("phase 8")
         # phase 9: GPT-2 served, ViT-L/16, the dispatcher on the card
         gpt2_serving = serve(torch, all_kernels, "gpt2", "124m",
                              lengths=[5, 65, 300, 900], max_len=1024)
@@ -8790,6 +9211,7 @@ def main() -> int:
               f"{gpt2_serving['prefill_ms_mean']:.3f} ms mean, decode step "
               f"{gpt2_serving['decode_step_ms_mean']:.3f} ms mean, "
               f"{gpt2_serving['tokens_per_s']:.1f} tokens/s", flush=True)
+        stamp("phase 9")
         # phase 10: the engine's options on Llama-3-8B, built once
         cfg8b = llama.llama_config("8b")
         params8b = transformer.init(
@@ -8799,17 +9221,20 @@ def main() -> int:
                                      params8b).items():
             launches[f"engine_{name}"] = n
         torch.cuda.empty_cache()
+        stamp("phase 10")
         # phase 12: PD disaggregation on the same model, before phase 11
         # needs the card's memory
         pd = serve_pd(torch, all_kernels, card, cfg8b, params8b)
         for path in ("pd_monolithic", "pd_handoff", "pd_coalesced_prefill"):
             launches[path] = pd[path]
+        stamp("phase 12")
         # phase 14's and 15's expected responses, on the same weights
         expected14 = http_expected(torch, cfg8b, params8b)
         expected15 = pd_expected(torch, cfg8b, params8b)
         expected16 = batch_expected(torch, cfg8b, params8b)
         expected18 = dag_expected(torch, cfg8b, params8b)
         fps10 = weight_fingerprints(torch, params8b)
+        stamp("the expected responses of phases 14-18")
         del params8b
         gc.collect()  # engines that hold the 8B weights in reference cycles
         torch.cuda.empty_cache()
@@ -8821,6 +9246,7 @@ def main() -> int:
         launches["worker_kernels"] = runtime["13b"]["launches"]
         launches["actor_serve"] = runtime["13c"]["launches"]
         print(json.dumps({"card": card, "runtime": runtime}), flush=True)
+        stamp("phase 13")
         # phase 14: Llama-3-8B over HTTP from a Serve replica
         http = serve_http(torch, ray_tpu_torch, card, serving, runtime,
                           expected14)
@@ -8865,6 +9291,7 @@ def main() -> int:
                                   fps10)
         launches["pip_env_actor"] = scaled["20a"]["launches"]
         launches["autoscaled_actor"] = scaled["20b"]["launches"]
+        launches["gce_vm_actor"] = scaled["20c"]["launches"]
         print(json.dumps({"card": card, "autoscaler": scaled}), flush=True)
         # phase 21: the ops plane: Llama-3-8B from a job submitted through
         # the CLI, the dashboard, the microbenchmarks
@@ -8872,35 +9299,46 @@ def main() -> int:
         launches["job_serve"] = ops["launches"]
         launches["llm_bench"] = ops["llm_bench_launches"]
         print(json.dumps({"card": card, "ops_plane": ops}), flush=True)
-        # phase 22: RLlib's learners on the card and the C++ worker, in a
-        # fresh session
-        rl = rl_phase(torch, ray_tpu_torch, all_kernels, card)
-        launches["rl_ppo"] = rl["22a"]["launches"]
-        launches["rl_dqn"] = rl["22b"]["launches"]
-        print(json.dumps({"card": card, "rllib": rl}), flush=True)
-        # phase 23: RLlib's model-free algorithms, learners on the card, in
-        # a fresh session
-        rl2 = rl2_phase(torch, ray_tpu_torch, all_kernels, card)
+        # phase 23 (RLlib's model-free algorithms, learners on the card, in
+        # a fresh session) in a process of its own, beside phases 22, 24
+        # and 11 here: one after the other the four took 315 s of a slow
+        # host's 1193.2 s (PERF.md)
+        lane = Lane("23")
+        try:
+            # phase 22: RLlib's learners on the card and the C++ worker, in
+            # a fresh session
+            rl = rl_phase(torch, ray_tpu_torch, all_kernels, card)
+            launches["rl_ppo"] = rl["22a"]["launches"]
+            launches["rl_dqn"] = rl["22b"]["launches"]
+            print(json.dumps({"card": card, "rllib": rl}), flush=True)
+            # phase 24: DreamerV3, its learner on the card, in a fresh
+            # session
+            dreamer = dreamer_phase(torch, ray_tpu_torch, all_kernels, card)
+            launches["rl_dreamerv3"] = dreamer["launches"]
+            print(json.dumps({"card": card, "rllib_dreamerv3": dreamer}),
+                  flush=True)
+            # phase 11: multi-GPU on the one card
+            meshed = mesh_train(torch, all_kernels)
+            launches["mesh_train"] = meshed["launches"]
+            print(json.dumps({"card": card, "mesh_train": meshed}),
+                  flush=True)
+            tp = serve_tp(torch, card)
+            launches["serve_tp_rank0"], launches["serve_tp_rank1"] = \
+                tp["launches_by_rank"]
+            print(json.dumps({"card": card, "serve_tp": tp}), flush=True)
+            print(f"serve llama-3-8b tp={TP} ({tp['label']}, {card}): "
+                  f"prefill {tp['prefill_ms_mean']:.3f} ms mean, decode "
+                  f"step {tp['decode_step_ms_mean']:.3f} ms mean",
+                  flush=True)
+            dry = dryrun_tp(torch)
+            print(json.dumps({"card": card, "dryrun": dry}), flush=True)
+            stamp("phases 22, 24 and 11")
+            rl2 = lane.join()
+        finally:
+            lane.stop()
         launches.update(rl2["launches"])
         print(json.dumps({"card": card, "rllib_part_two": rl2}), flush=True)
-        # phase 24: DreamerV3, its learner on the card, in a fresh session
-        dreamer = dreamer_phase(torch, ray_tpu_torch, all_kernels, card)
-        launches["rl_dreamerv3"] = dreamer["launches"]
-        print(json.dumps({"card": card, "rllib_dreamerv3": dreamer}),
-              flush=True)
-        # phase 11: multi-GPU on the one card
-        meshed = mesh_train(torch, all_kernels)
-        launches["mesh_train"] = meshed["launches"]
-        print(json.dumps({"card": card, "mesh_train": meshed}), flush=True)
-        tp = serve_tp(torch, card)
-        launches["serve_tp_rank0"], launches["serve_tp_rank1"] = \
-            tp["launches_by_rank"]
-        print(json.dumps({"card": card, "serve_tp": tp}), flush=True)
-        print(f"serve llama-3-8b tp={TP} ({tp['label']}, {card}): prefill "
-              f"{tp['prefill_ms_mean']:.3f} ms mean, decode step "
-              f"{tp['decode_step_ms_mean']:.3f} ms mean", flush=True)
-        dry = dryrun_tp(torch)
-        print(json.dumps({"card": card, "dryrun": dry}), flush=True)
+        stamp("phase 23")
 
     def case(name):
         return next(c for c in checks if c["case"] == name)

@@ -3,8 +3,10 @@
 The port's copy of ray_tpu/_private/monitor.py, run as
 ``python -m ray_tpu_torch._private.monitor --address <GCS address>
 --autoscaling-config <json or yaml> [--keep-nodes-on-exit]``. Its
-providers are ``local`` (follower agents on this machine), ``fake_file``
-and ``kuberay``; ``gce_tpu`` and ``fake_gce_tpu`` are refused by name.
+providers are ``local`` (follower agents on this machine), ``gce_gpu``
+(one Compute Engine A3 VM per node over compute.googleapis.com v1),
+``kuberay``, and ``fake_gce_gpu``/``fake_file`` for tests; ``gce_tpu`` and
+``fake_gce_tpu`` are refused by name.
 
 (reference: python/ray/autoscaler/_private/monitor.py — the head node runs
 `monitor.py` as a separate process that connects to the GCS, reads demand,
@@ -14,7 +16,7 @@ behind a CLI entry.)
 
 Config (JSON or YAML):
     provider:
-      type: local | kuberay                  # fake_file for tests
+      type: local | gce_gpu | kuberay        # fake_gce_gpu, fake_file for tests
       ... provider-specific keys ...
     node_types:
       worker: {resources: {CPU: 4}, min_nodes: 0, max_nodes: 10}
@@ -49,18 +51,45 @@ def build_provider(cfg: dict, gcs_address: str):
     p = dict(cfg.get("provider") or {"type": "local"})
     kind = p.pop("type", "local")
     if kind in ("gce_tpu", "fake_gce_tpu"):
-        # one TPU slice per node over tpu.googleapis.com: left out of the
-        # port by decision, with util/accelerators/tpu.py
-        from ray_tpu_torch.exceptions import _not_ported
-
-        raise _not_ported(
-            f"the {kind!r} provider (one TPU slice per node, "
-            "autoscaler/gce_tpu.py and gce_rest.py)",
-            "'left out by decision' (beside util/accelerators/tpu.py)")
+        # one TPU slice per node over tpu.googleapis.com: a slice has no
+        # GPU counterpart; the card's cloud provider is gce_gpu
+        raise NotImplementedError(
+            f"the {kind!r} provider (one TPU slice per node over "
+            "tpu.googleapis.com) is left out by decision: use 'gce_gpu' "
+            "(one Compute Engine A3 VM with its H100s per node) or "
+            "'fake_gce_gpu'")
     if kind == "local":
         from ray_tpu_torch.autoscaler.node_provider import LocalNodeProvider
 
         return LocalNodeProvider(gcs_address)
+    if kind == "gce_gpu":
+        from ray_tpu_torch.autoscaler.gce_gpu import GceGpuNodeProvider
+        from ray_tpu_torch.autoscaler.gce_rest import RestGceGpuApi
+
+        # fail LOUDLY here, at monitor start — a missing project/zone/boot
+        # image or unusable credentials must not wait for the first scale-up
+        missing = [k for k in ("project", "zone", "source_image")
+                   if not p.get(k)]
+        if missing:
+            raise ValueError(
+                f"gce_gpu provider config is missing {missing}: the REST "
+                "client cannot insert a VM on compute.googleapis.com "
+                "without them (autoscaling-config provider: {type: "
+                "gce_gpu, project: ..., zone: ..., source_image: <an image "
+                "holding torch and this repository>})")
+        api_kw = {k: p.pop(k) for k in ("network", "preemptible") if k in p}
+        project, zone = p.pop("project"), p.pop("zone")
+        api = RestGceGpuApi(project=project, zone=zone,
+                            source_image=p.pop("source_image"),
+                            gcs_address=gcs_address, **api_kw)
+        api.validate()
+        return GceGpuNodeProvider(api, project=project, zone=zone,
+                                  gcs_address=gcs_address, **p)
+    if kind == "fake_gce_gpu":
+        from ray_tpu_torch.autoscaler.gce_gpu import (FakeGceGpuApi,
+                                                      GceGpuNodeProvider)
+
+        return GceGpuNodeProvider(FakeGceGpuApi(), **p)
     if kind == "fake_file":
         # file-backed fake "cloud" with SIGKILL fault injection — the
         # provider crash-restart chaos tests drive the real monitor process

@@ -329,13 +329,19 @@ class NodeAgent:
         self.store.cleanup_session()
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The agent's command line (a GCE GPU VM's startup script runs it with
+    ``--address`` and ``--host-id``)."""
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--address", required=True, help="GCS address host:port or unix:<path>")
     p.add_argument("--host-id", default=None)
     p.add_argument("--num-cpus", type=float, default=None)
     p.add_argument("--num-gpus", type=float, default=None)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     agent = NodeAgent(address=args.address, host_id=args.host_id,
                       num_cpus=args.num_cpus, num_gpus=args.num_gpus)
 

@@ -1,21 +1,11 @@
 """Public exception types: the port's own copy of ray_tpu/exceptions.py
-(class names and pickling kept, so a twin test compares class names), plus
-``_not_ported``, the error a path of the JAX package that the port does not
-have yet raises, naming its ROADMAP.md item."""
+(class names and pickling kept, so a twin test compares class names)."""
 
 from __future__ import annotations
 
 
 class RayTpuError(Exception):
     pass
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    """The refusal of a JAX-package path the port does not have yet:
-    `item` names its ROADMAP.md Queue 1 item (e.g. "item 13")."""
-    return NotImplementedError(
-        f"{what} is not ported to ray_tpu_torch yet; see ROADMAP.md "
-        f"Queue 1 {item}")
 
 
 class RayTaskError(RayTpuError):

@@ -294,3 +294,41 @@ def test_spawn_env_binds_or_hides():
     assert acc.WORKER_GPUS_ENV not in env
     assert acc.gpus_required({"GPU": 0.5}) == 0
     assert acc.gpus_required({"GPU": 2.0}) == 2
+
+
+def test_pod_utilities(monkeypatch):
+    """Twin of the reference's test for what has a GPU counterpart (a GCE
+    GPU VM is one host: no pod name, worker count or slice-head resource):
+    the host's device count under the env override, and no device bound to
+    the driver's process."""
+    from ray_tpu.util.accelerators import tpu
+    from ray_tpu_torch.util.accelerators import gpu
+
+    monkeypatch.setenv("RAY_TPU_CHIPS", "4")
+    monkeypatch.setenv("RAY_TPU_TORCH_GPUS", "4")
+    assert tpu.get_num_tpu_chips_on_node() == gpu.get_num_gpus_on_node() == 4
+    monkeypatch.setenv("RAY_TPU_TORCH_GPUS", "2")
+    assert gpu.get_num_gpus_on_node() == 2
+    monkeypatch.delenv("RAY_TPU_TORCH_WORKER_GPUS", raising=False)
+    assert gpu.get_current_process_visible_gpu_ids() == []
+
+
+def _scn_visible_ids(rt):
+    """The util function's ids inside a 2-device task: the grant."""
+    mod, fn = (("ray_tpu_torch.util.accelerators.gpu",
+                "get_current_process_visible_gpu_ids") if _port(rt) else
+               ("ray_tpu.util.accelerators.tpu",
+                "get_current_process_visible_chip_ids"))
+
+    @rt.remote(**_acc(rt, 2))
+    def ids():
+        import importlib
+
+        return sorted(getattr(importlib.import_module(mod), fn)())
+
+    got = rt.get(ids.remote(), timeout=120)
+    return len(got), len(set(got)), all(0 <= i < 4 for i in got)
+
+
+def test_visible_device_ids_of_a_worker(pkgs):
+    _same(pkgs, _scn_visible_ids, want=(2, 2, True))

@@ -392,7 +392,7 @@ _RUNTIME = ("api", "accelerators", "actor_executor", "constants", "direct",
             "runtime_env_pip", "runtime_env_conda", "runtime_env_agent",
             "worker_boot", "monitor")
 _AUTOSCALER = ("__init__", "autoscaler", "instance_manager", "kuberay",
-               "node_provider")
+               "node_provider", "gce_gpu", "gce_rest")
 _SERVE = ("__init__", "api", "batching", "config", "controller",
           "deployment", "gcs_state", "handle", "http_server", "multiplex",
           "proxy", "proxy_plane", "replica", "request_context",
@@ -433,7 +433,8 @@ _MODULES = ("llm/kv_transfer.py", "llm/pd.py",
                 "util/client/proxier.py", "util/client/relay.py",
                 "util/multiprocessing/__init__.py",
                 "util/multiprocessing/pool.py", "util/joblib/__init__.py",
-                "util/dask/__init__.py", "rllib/env_runner.py",
+                "util/dask/__init__.py", "util/accelerators/__init__.py",
+                "util/accelerators/gpu.py", "rllib/env_runner.py",
                 "rllib/multi_agent_runner.py", "rllib/algorithms/impala.py",
                 "rllib/algorithms/sac.py", "rllib/algorithms/dreamerv3.py")
 

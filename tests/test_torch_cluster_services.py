@@ -206,13 +206,15 @@ def test_monitor_process_scales_cluster(tmp_path):
 @pytest.mark.parametrize("kind", ["gce_tpu", "fake_gce_tpu"])
 def test_monitor_refuses_the_gce_tpu_providers_by_name(kind):
     """One TPU slice per node over tpu.googleapis.com is left out of the
-    port by decision (ROADMAP.md, beside util/accelerators/tpu.py)."""
+    port by decision (ROADMAP.md: a slice has no GPU counterpart); the
+    refusal names the card's provider, gce_gpu."""
     from ray_tpu_torch._private.monitor import build_provider
 
     with pytest.raises(NotImplementedError, match=kind) as ei:
         build_provider({"provider": {"type": kind, "project": "p",
                                      "zone": "z"}}, "unix:/unused")
     assert "left out by decision" in str(ei.value)
+    assert "'gce_gpu'" in str(ei.value)
 
 
 def test_infeasible_gpu_demand_waits_while_a_monitor_is_attached():

@@ -342,10 +342,17 @@ def test_serve_metrics_reach_prometheus_endpoint(live):
         try:
             got = [h.remote(i).result(timeout_s=30) for i in range(5)]
 
+            # wait for every series asserted below: the reference's
+            # /metrics names a family in HELP and TYPE lines before it has
+            # a sample, and the replica counts a request before it
+            # observes its latency, so a flush between the two ships the
+            # counter alone
+            want = ("ray_tpu_serve_requests_total", 'deployment="mx_Echo"',
+                    "ray_tpu_serve_request_latency_ms")
+
             def scraped():
                 text = _get(port, "/metrics")[1].decode()
-                return text if "ray_tpu_serve_requests_total" in text \
-                    else None
+                return text if all(w in text for w in want) else None
 
             text = _poll(scraped, 20) or ""
         finally:

@@ -262,6 +262,10 @@ def test_package_imports_without_jax_or_ray_tpu():
         "import ray_tpu_torch.autoscaler.instance_manager\n"
         "import ray_tpu_torch.autoscaler.node_provider\n"
         "import ray_tpu_torch.autoscaler.kuberay\n"
+        "import ray_tpu_torch.autoscaler.gce_gpu\n"
+        "import ray_tpu_torch.autoscaler.gce_rest\n"
+        "import ray_tpu_torch.util.accelerators\n"
+        "import ray_tpu_torch.util.accelerators.gpu\n"
         "import ray_tpu_torch.remote_function, ray_tpu_torch.actor\n"
         "import ray_tpu_torch.runtime_env, ray_tpu_torch.cross_lang\n"
         "import ray_tpu_torch.util.placement_group\n"

@@ -12,6 +12,21 @@ import importlib
 
 import pytest
 
+# the GCE TPU provider's names and the GCE GPU provider's
+GCE_RENAMES = {"GceTpuApi": "GceGpuApi", "FakeGceTpuApi": "FakeGceGpuApi",
+               "GceTpuNodeProvider": "GceGpuNodeProvider",
+               "tpu_slice_node_type": "gpu_vm_node_type"}
+# util.accelerators.tpu's names and util.accelerators.gpu's: a GCE GPU VM
+# is one host, so the pod functions and the slice-head resource have none
+ACCELERATOR_RENAMES = {
+    "get_num_tpu_chips_on_node": "get_num_gpus_on_node",
+    "get_current_process_visible_chip_ids":
+        "get_current_process_visible_gpu_ids",
+    "get_current_pod_name": None,
+    "get_current_pod_worker_count": None,
+    "slice_head_resource": None,
+}
+
 # package → {name: why it differs}. "item N": ROADMAP.md Queue 1 item N
 # ports it; "rename": the port's name for it; "port": the port's own name
 # (the reference has no counterpart, or keeps it outside __all__)
@@ -35,10 +50,13 @@ ALLOWED = {
     },
     "tune": {},
     "autoscaler": {
-        **{n: "decision: the GCE TPU provider (one TPU slice per node) is "
-              "left out, as util/accelerators/tpu.py is (ROADMAP.md)"
-           for n in ("GceTpuApi", "FakeGceTpuApi", "GceTpuNodeProvider",
-                     "tpu_slice_node_type")},
+        **{tpu: f"rename: {gpu} (one Compute Engine A3 VM per node, not a "
+                "TPU slice)" for tpu, gpu in GCE_RENAMES.items()},
+        **{gpu: f"rename of {tpu}" for tpu, gpu in GCE_RENAMES.items()},
+    },
+    "util.accelerators": {
+        "tpu": "rename: gpu",
+        "gpu": "rename of tpu",
     },
     "dag": {},
     "experimental.channel": {},
@@ -91,6 +109,18 @@ def test_all_matches_the_reference_but_the_named_differences(sub):
     for name in port:  # every exported name resolves
         assert hasattr(importlib.import_module(
             f"ray_tpu_torch.{sub}" if sub else "ray_tpu_torch"), name), name
+
+
+def test_accelerator_utilities_match_the_reference_but_the_pod_names():
+    """util.accelerators.gpu's names are tpu's renamed, but for the pod
+    functions and slice_head_resource: a GCE GPU VM is one host."""
+    from ray_tpu.util.accelerators import tpu
+    from ray_tpu_torch.util.accelerators import gpu
+
+    assert set(tpu.__all__) == set(ACCELERATOR_RENAMES)
+    assert set(gpu.__all__) == {g for g in ACCELERATOR_RENAMES.values() if g}
+    for name in gpu.__all__:
+        assert callable(getattr(gpu, name)), name
 
 
 def test_queue3_e_names_are_exported():

@@ -97,6 +97,9 @@ def _both(engines, case):
 
 def test_engine_abort_reclaims_mid_stream(engines):
     def case(pkg, eng):
+        # paced, so the abort lands before the 48 tokens are decoded even
+        # when the scheduler thread outruns this one (a loaded machine)
+        _paced(eng)
         req = eng.submit([1, 2, 3, 4], _sp(pkg, max_tokens=48))
         it = iter(req)
         first = next(it)  # a decode step has run: the slot is bound
