@@ -1,4 +1,5 @@
-"""Device-busy share of one step, from torch.profiler on a CUDA card."""
+"""Device-busy share of one step, from torch.profiler on a CUDA card
+(reduced by ``util/device_trace.reduce``, as the engine's slices are)."""
 
 from __future__ import annotations
 
@@ -6,6 +7,8 @@ import time
 from typing import Callable
 
 import torch
+
+from ray_tpu_torch.util.device_trace import kernel_events, reduce
 
 # kernel kinds by a substring of the device kernel's name, first match wins
 KINDS = (("attention (csrc)", ("flash_", "ragged_")),
@@ -35,29 +38,22 @@ def busy_share(step: Callable[[], object]) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t0 = time.time_ns()
         step()
         torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    by_name: dict = {}
-    n_kernels = 0
-    for e in prof.events():
-        # user annotations (e.g. "Optimizer.step#AdamW.step") also sit on
-        # the device timeline, spanning kernels counted on their own
-        if e.device_type == torch.autograd.DeviceType.CUDA \
-                and not getattr(e, "is_user_annotation", False):
-            n_kernels += 1
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3)
-    if not n_kernels:  # the profiler saw no device activity
+        t1 = time.time_ns()
+    wall_ms = (t1 - t0) / 1e6
+    red = reduce(kernel_events(prof), t0, t1)
+    if not red["kernels"]:  # the profiler saw no device activity
         return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    by_name = {k: 1e3 * s for k, s in red["kernel_s"].items()}
     device_ms = sum(by_name.values())
     by_kind: dict = {}
     for name, ms in by_name.items():
         by_kind[kind_of(name)] = by_kind.get(kind_of(name), 0.0) + ms
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "device_kernels": n_kernels, "busy_share": device_ms / wall_ms,
+            "device_kernels": red["kernels"],
+            "busy_share": device_ms / wall_ms,
             "device_ms_by_kind": dict(sorted(by_kind.items(),
                                              key=lambda kv: -kv[1])),
-            "top_kernels_ms": [[k[:160], v] for k, v in top]}
+            "top_kernels_ms": [[k, 1e3 * s] for k, s in red["top_kernels_s"]]}

@@ -73,6 +73,10 @@ class LLMConfig:
     lora_config: LoraConfig | None = None
     # PD disaggregation; None → PDConfig() defaults
     pd_config: PDConfig | None = None
+    # the port's own: serve POST /start_profile and /stop_profile (the
+    # engine's device-trace hook, llm/server.py); off by default, as vLLM
+    # serves them only when VLLM_TORCH_PROFILER_DIR is set
+    profile_routes: bool = False
 
     def build_model(self, device=None):
         """Returns (TransformerConfig, params) on `device` (cuda unless the

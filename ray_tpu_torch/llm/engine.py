@@ -33,6 +33,12 @@ decoding:
 - ``attn_impl="gather"`` (paged): the full-table gather decode step instead
   of the ragged kernel.
 
+Where the scheduler's time goes: ``stats()`` splits the decode step into
+its launch and its sync (with the launch's thread CPU time), Serve's
+engine phase histogram times each request's queue wait and prefill, and
+``start_profile``/``stop_profile`` bracket a device trace whose idle time
+is put down to the scheduler phase that was open.
+
 On the card, whole-prompt prefills and first chunks run the flash kernel
 and the paged ragged decode step the ragged paged kernel (as in
 ray_tpu/llm/engine.py:306-307, iff the device can run it); the slot and
@@ -89,6 +95,7 @@ from ray_tpu_torch.ops import flash_attention
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import (MESH_AXIS_TP, axis_rank,
                                          mesh_shape, use_mesh)
+from ray_tpu_torch.util import device_trace, tracing
 
 logger = logging.getLogger(__name__)
 
@@ -132,12 +139,17 @@ class _Request:
     # streamed admission the kv_transfer.KVPageStream still being fed
     kv_pack: dict | None = None
     kv_stream: object | None = None
-    # request-phase stamps (wall clock): submit → slot bind is the
-    # admission wait, _emit times the inter-token gap off last_emit_ts;
-    # llm/pd.py's decode_stream reads them for retroactive spans
+    # request-phase stamps (wall clock): submit → the pass that starts its
+    # admission is the queue wait, from there to the first token the
+    # prefill, submit → slot bind the admission wait; _emit times the
+    # inter-token gap off last_emit_ts; llm/pd.py's decode_stream reads
+    # them for retroactive spans
     submitted_ts: float = 0.0
+    started_ts: float = 0.0
     admitted_ts: float = 0.0
     last_emit_ts: float = 0.0
+    # the submitter's span context (util/tracing.py), None when unsampled
+    trace_ctx: dict | None = None
 
     def __iter__(self):
         """Yield generated tokens as they are produced."""
@@ -250,6 +262,21 @@ def shard_params_tp(params: dict, mesh) -> dict:
         return tree.narrow(d, r * n, n).contiguous()
 
     return cut(params, ())
+
+
+# spans one device trace keeps (LLMEngine.start_profile); later ones are
+# counted as dropped
+PROFILE_SPANS_MAX = 1 << 17
+# the longest slice: the scheduler stops a profile left on this long itself.
+# The stop and the reduction stall the scheduler 75-100 us for each kernel
+# recorded (Mixtral chat on an H100: ~38k kernels a second, so a 10 s slice
+# stalls it 30-40 s); the cap keeps that stall, and the profiler's memory,
+# inside the proxy's 60 s request time limit
+PROFILE_SLICE_MAX_S = 10.0
+# a profiler's start or stop on the scheduler's thread: CUPTI's first start
+# in a process and the stop's processing of every recorded kernel take
+# seconds on the card
+PROFILE_CALL_TIMEOUT_S = 300.0
 
 
 def _pow2_at_least(n: int) -> int:
@@ -419,6 +446,13 @@ class LLMEngine:
         self.prefix_prefills = 0    # prefill_with_prefix calls
         self.prefill_seconds = 0.0  # prefill + first-token sync, host clock
         self.decode_seconds = 0.0   # decode or verify step + sampling sync
+        # its two parts: the launch (forward, guided bias, sampling, commit)
+        # up to the sampled ids' copy, and the wait in that copy; and the
+        # scheduler thread's CPU seconds over the launch (the rest of the
+        # launch's wall time it waited for the GIL or a core)
+        self.decode_launch_seconds = 0.0
+        self.decode_sync_seconds = 0.0
+        self.decode_launch_cpu_seconds = 0.0
         # per-row sampling params on the device, updated only at admission
         self._temps = torch.zeros((max_slots,), dtype=torch.float32,
                                   device=self.device)
@@ -454,6 +488,21 @@ class LLMEngine:
         self._agreed_aborts = 0
         self._count_lock = threading.Lock()
         self._now = time.time()  # the pass's clock (agreed under a mesh)
+        # device-trace hook (start_profile): while on, the scheduler appends
+        # (phase, start_ns, end_ns) of its phases to _spans; None when off
+        self._spans: list | None = None
+        self._span_open: tuple | None = None  # (phase, start_ns)
+        self._spans_dropped = 0
+        self._prof = None        # the running torch.profiler
+        self._prof_t0 = 0
+        self._prof_start_s = 0.0  # the scheduler's seconds in its start
+        self._prof_req: tuple | None = None   # (command, done, box)
+        self._prof_lock = threading.Lock()    # one caller at a time
+        self._prof_hand = threading.Lock()    # _prof_req's hand-off
+        # the last slice's result, kept until the next start: a stop with
+        # no profile on returns it (a slice the cap ended, or one whose
+        # caller gave up waiting)
+        self._prof_result: dict | None = None
         self._init_phase_metrics()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="llm-engine")
@@ -492,11 +541,12 @@ class LLMEngine:
 
     def _init_phase_metrics(self) -> None:
         """Serving-phase instrumentation, resolved once per engine: the
-        slot admission wait and the inter-token gap (Serve's
-        ``ray_tpu_llm_engine_phase_seconds``), and for the paged layout the
-        decode step's wall time by attention impl. None when
-        ``serve_metrics`` is off."""
+        queue wait, the prefill, the slot admission wait and the
+        inter-token gap (Serve's ``ray_tpu_llm_engine_phase_seconds``), and
+        for the paged layout the decode step's wall time by attention impl.
+        None when ``serve_metrics`` is off."""
         self._phase_admit = self._phase_gap = self._step_obs = None
+        self._phase_queue = self._phase_prefill = None
         try:
             from ray_tpu_torch.serve import request_context as _rc
             from ray_tpu_torch.util import metrics as met
@@ -505,6 +555,10 @@ class LLMEngine:
                                                    "admission_wait")
             self._phase_gap = _rc.phase_observer(_rc.ENGINE_PHASE,
                                                  "inter_token")
+            self._phase_queue = _rc.phase_observer(_rc.ENGINE_PHASE,
+                                                   "queue_wait")
+            self._phase_prefill = _rc.phase_observer(_rc.ENGINE_PHASE,
+                                                     "prefill")
             if self.kv_layout == "paged" and _rc.metrics_enabled():
                 h = met.get_or_create(
                     met.Histogram, "ray_tpu_llm_decode_step_seconds",
@@ -517,6 +571,7 @@ class LLMEngine:
         except Exception as e:  # metrics must never gate the engine's boot
             logger.debug("engine phase metrics unavailable: %r", e)
             self._phase_admit = self._phase_gap = self._step_obs = None
+            self._phase_queue = self._phase_prefill = None
 
     def _check_alive(self):
         if self._error is not None:
@@ -665,6 +720,7 @@ class LLMEngine:
                        history=list(token_ids), lora_idx=lora_idx,
                        deadline_ts=float(deadline_ts or 0.0))
         req.submitted_ts = time.time()
+        req.trace_ctx = tracing.current_context()
         self._enqueue(req)
         return req
 
@@ -1028,6 +1084,8 @@ class LLMEngine:
     def _admit(self):
         admitted = 0
         while self._free and admitted < self.max_prefills_per_step:
+            if self._spans is not None:
+                self._phase("admit")
             req = self._next_waiting()
             if req is None:
                 return
@@ -1050,13 +1108,18 @@ class LLMEngine:
                         self._free.append(slot)
                         self._backlog.append(req)
                         return  # page pressure: stop admitting this round
+                    self._observe_queue_wait(req)
                     continue
                 if not self._insert_transferred(req, slot):
                     self._free.append(slot)
                     self._backlog.append(req)
                     return  # page pressure: stop admitting this round
+                self._observe_queue_wait(req)
                 admitted += 1
                 continue
+            if self._spans is not None:
+                self._phase("prefill")
+            req.started_ts = time.time()
             t0 = time.perf_counter()
             if self.kv_layout == "paged" and (self.enable_prefix_cache
                                               or self.prefill_chunk):
@@ -1068,7 +1131,7 @@ class LLMEngine:
                 self.prefill_seconds += time.perf_counter() - t0
                 admitted += 1
                 if first_id != -1:  # -1 = staged for chunked prefill
-                    self._emit(req, first_id)
+                    self._first_token(req, first_id)
                 continue
             n = len(req.tokens)
             bucket = self._bucket(n)
@@ -1090,7 +1153,31 @@ class LLMEngine:
                 return
             self.prefill_seconds += time.perf_counter() - t0
             admitted += 1
-            self._emit(req, first_id)
+            self._first_token(req, first_id)
+
+    def _observe_queue_wait(self, req: _Request) -> None:
+        """A PD admission's submit → the pass that grants its slot."""
+        if self._phase_queue is not None:
+            self._phase_queue.observe(time.time() - req.submitted_ts)
+
+    def _first_token(self, req: _Request, token_id: int) -> None:
+        """Emit a prefill's first token; its stamp ends the request's
+        queue_wait and prefill phases, observed here and, for a sampled
+        request, emitted as its llm:queue_wait and llm:prefill spans."""
+        now = time.time()
+        if self._spans is not None:
+            self._phase("emit")
+        if self._phase_queue is not None:
+            self._phase_queue.observe(req.started_ts - req.submitted_ts)
+            self._phase_prefill.observe(now - req.started_ts)
+        if req.trace_ctx is not None:
+            tracing.emit_span_for(req.trace_ctx, "llm:queue_wait",
+                                  req.submitted_ts, req.started_ts,
+                                  rid=req.rid)
+            tracing.emit_span_for(req.trace_ctx, "llm:prefill",
+                                  req.started_ts, now, rid=req.rid,
+                                  prompt_tokens=len(req.tokens))
+        self._emit(req, token_id, now)
 
     # ------------------------------------------------------- PD admission
 
@@ -1456,7 +1543,7 @@ class LLMEngine:
                                   self._slot_pages[req.slot])
         first_id = int(first[0])
         self.prefill_seconds += time.perf_counter() - t0
-        self._emit(req, first_id)
+        self._first_token(req, first_id)
 
     # ------------------------------------------------------------ speculative
 
@@ -1495,7 +1582,10 @@ class LLMEngine:
     def _speculative_step(self):
         """One multi-token decode: verify n-gram drafts for every active
         row, emit the accepted prefix plus one corrected token."""
+        if self._spans is not None:
+            self._phase("decode_launch")
         t_step = time.perf_counter()
+        c_step = time.thread_time()
         K = self.speculative_k + 1
         S = self.max_slots
         draft = np.zeros((S, self.speculative_k), np.int32)
@@ -1506,12 +1596,12 @@ class LLMEngine:
         toks = self._agree(decoding.sample_per_row(
             logits.reshape(S * K, logits.shape[-1]), self._gen,
             self._temps.repeat_interleave(K), self._topks.repeat_interleave(K)))
-        toks_host = toks.cpu().numpy().reshape(S, K)
+        toks_host = self._host_ids(toks, t_step, c_step)[0].reshape(S, K)
+        now = time.time()
         counts = np.zeros((S,), np.int32)
         last = np.zeros((S,), np.int32)
         self.spec_steps += 1
         self.spec_slot_steps += len(self._by_slot)
-        self.decode_seconds += time.perf_counter() - t_step
         for slot, req in list(self._by_slot.items()):
             a = 0
             while (a < self.speculative_k
@@ -1523,7 +1613,7 @@ class LLMEngine:
             counts[slot] = a + 1
             last[slot] = toks_host[slot, a]
             for j in range(a + 1):
-                self._emit(req, int(toks_host[slot, j]))
+                self._emit(req, int(toks_host[slot, j]), now)
                 if slot not in self._by_slot:
                     break  # finished (EOS/max_tokens) mid-burst
         # released rows (inside _emit) are inactive: commit skips them
@@ -1531,9 +1621,10 @@ class LLMEngine:
 
     # ------------------------------------------------------------ emit/release
 
-    def _emit(self, req: _Request, token_id: int):
+    def _emit(self, req: _Request, token_id: int, now: float):
+        """Put one token on the request's stream; `now` is the pass's stamp
+        of when it was sampled."""
         if self._phase_gap is not None:
-            now = time.time()
             last = req.last_emit_ts or req.admitted_ts
             if last:
                 self._phase_gap.observe(now - last)
@@ -1662,6 +1753,12 @@ class LLMEngine:
             self._error = e
             self._drain_all(e)
             raise
+        finally:
+            try:
+                self._profile_close()
+            except Exception as e:  # noqa: BLE001 — the loop's own exit
+                # (or error) is what the callers see
+                logger.warning("stopping the engine's profile failed: %r", e)
 
     def _pages_bound(self) -> int:
         """Power-of-two bound on the batch's live page span (host mirror of
@@ -1726,10 +1823,21 @@ class LLMEngine:
                 pass
 
     def _pass(self) -> bool:
-        """One scheduler pass; False when the engine stops."""
+        """One scheduler pass; False when the engine stops. With the
+        device-trace hook on, each phase boundary stamps a span
+        (``_phase``); off, it costs one ``is None`` test."""
+        if self._prof_req is not None:
+            self._profile_command()
+        if self._spans is not None and (time.time_ns() - self._prof_t0
+                                        > PROFILE_SLICE_MAX_S * 1e9):
+            self._profile_stop()
         if self._idle():  # local state: it only paces the pass
+            if self._spans is not None:
+                self._phase("wait")
             self._work.wait(timeout=0.1)
             self._work.clear()
+        if self._spans is not None:
+            self._phase("sched")
         if not self._sync_pass():
             return False
         # aborted and expired rows are back in the pool before this pass
@@ -1737,38 +1845,202 @@ class LLMEngine:
         self._apply_aborts(self._now)
         self._expire_deadlines(self._now)
         self._admit()
-        streamed = self._drain_streams() if self._streaming else False
+        if self._streaming:
+            if self._spans is not None:
+                self._phase("admit")
+            streamed = self._drain_streams()
+        else:
+            streamed = False
         if self._prefilling:
             # one chunk a pass: running requests keep emitting while a long
             # prompt streams in
+            if self._spans is not None:
+                self._phase("prefill")
             self._prefill_step()
         if not self._by_slot:
             if self._streaming and not streamed:
                 # nothing to decode and no new pages: park until the
                 # transfer plane's feed() wakes the loop
+                if self._spans is not None:
+                    self._phase("wait")
                 self._work.wait(timeout=0.005)
                 self._work.clear()
             return True
         if self.speculative_k:
             self._speculative_step()
             return True
+        if self._spans is not None:
+            self._phase("decode_launch")
         t_step = time.perf_counter()
+        c_step = time.thread_time()
         self.state, logits = self._decode_step()
         if self._guided_fsm:
             logits = logits + self._guided_bias(logits.shape)
         toks = self._agree(decoding.sample_per_row(
             logits, self._gen, self._temps, self._topks))
         decoding.commit_tokens(self.state, toks)
-        toks_host = toks.cpu().numpy()
+        toks_host, step_s = self._host_ids(toks, t_step, c_step)
+        now = time.time()
         self.decode_steps += 1
         self.decode_slot_steps += len(self._by_slot)
-        self.decode_seconds += time.perf_counter() - t_step
         if self._step_obs is not None:
             # device step + sampling sync, by attention impl
-            self._step_obs.observe(time.perf_counter() - t_step)
+            self._step_obs.observe(step_s)
         for slot, req in list(self._by_slot.items()):
-            self._emit(req, int(toks_host[slot]))
+            self._emit(req, int(toks_host[slot]), now)
         return True
+
+    def _host_ids(self, toks, t_step: float, c_step: float):
+        """The step's sampled ids on the host, and its wall seconds from
+        `t_step` (perf_counter; `c_step` the thread_time then): the launch
+        ends where the copy starts, the sync is the wait in the copy."""
+        c_launch = time.thread_time()
+        t_launch = time.perf_counter()
+        self.decode_launch_cpu_seconds += c_launch - c_step
+        self.decode_launch_seconds += t_launch - t_step
+        if self._spans is not None:
+            self._phase("decode_sync")
+        ids = toks.cpu().numpy()
+        t_end = time.perf_counter()
+        if self._spans is not None:
+            self._phase("emit")
+        self.decode_sync_seconds += t_end - t_launch
+        self.decode_seconds += t_end - t_step
+        return ids, t_end - t_step
+
+    # ------------------------------------------------------- device trace
+
+    def start_profile(self) -> float:
+        """Start the device-trace hook: ``torch.profiler`` records the
+        CUDA kernels (the CPU ops where the engine runs on the CPU), started
+        on the scheduler's thread, which stamps each of its phases until
+        ``stop_profile``, or for ``PROFILE_SLICE_MAX_S`` at most: ``sched``
+        (the pass's agreement, aborts, deadlines), ``admit``, ``prefill``
+        (a prompt's forward, or one chunk of it, and its first token's
+        sync), ``decode_launch``, ``decode_sync``, ``emit`` and ``wait``
+        (parked for work). Returns the start, ``time.time()`` seconds."""
+        return self._profile_call("start") / 1e9
+
+    def stop_profile(self) -> dict:
+        """End the trace and reduce it (``util/device_trace.reduce``): the
+        slice's length, the device's busy seconds (the union of kernel
+        intervals) and idle seconds, the idle put down to the scheduler's
+        phase that was open (``idle_s_by_phase``, ``outside`` where none
+        was), each phase's host seconds and the heaviest kernels; with the
+        spans kept and dropped (``PROFILE_SPANS_MAX``), whether the slice
+        ran into ``PROFILE_SLICE_MAX_S`` (``capped``) and the seconds the
+        scheduler spent, outside the slice, starting the profiler, stopping
+        it and reducing its trace (all on its own thread, so that these
+        three are the hook's whole stall). With no profile on, returns the
+        last slice's result again (one the cap ended, or one whose caller
+        gave up waiting); raises if no slice ran since the last start."""
+        return self._profile_call("stop")
+
+    def _profile_call(self, what: str):
+        """Hand a start or stop to the scheduler's thread, which runs it
+        at the top of its next pass, and wait for its result."""
+        with self._prof_lock:
+            self._check_alive()
+            done, box = threading.Event(), {}
+            with self._prof_hand:
+                self._prof_req = (what, done, box)
+            self._work.set()
+            if not done.wait(PROFILE_CALL_TIMEOUT_S):
+                with self._prof_hand:
+                    # withdrawn, unless the scheduler has taken it: a stop
+                    # it runs then keeps its result for the next stop
+                    self._prof_req = None
+                raise TimeoutError(f"the engine's scheduler took no profile "
+                                   f"{what} within {PROFILE_CALL_TIMEOUT_S} s")
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    def _profile_command(self) -> None:
+        with self._prof_hand:
+            req, self._prof_req = self._prof_req, None
+        if req is None:
+            return  # its caller timed out and withdrew it
+        what, done, box = req
+        try:
+            if what == "start":
+                box["value"] = self._profile_start()
+            elif self._prof is not None:
+                box["value"] = self._profile_stop()
+            elif self._prof_result is not None:
+                box["value"] = self._prof_result
+            else:
+                raise RuntimeError("no profile is on")
+        except Exception as e:  # noqa: BLE001 — the caller's error, not the
+            # scheduler's (a second profiler, say)
+            box["error"] = e
+        finally:
+            done.set()
+
+    def _profile_start(self) -> int:
+        if self._prof is not None:
+            raise RuntimeError("a profile is already on")
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        prof = profile(activities=[ProfilerActivity.CUDA if cuda
+                                   else ProfilerActivity.CPU])
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t = time.perf_counter()
+        prof.start()
+        self._prof_start_s = time.perf_counter() - t
+        self._prof, self._prof_t0 = prof, time.time_ns()
+        self._spans, self._span_open = [], None
+        self._spans_dropped = 0
+        self._prof_result = None
+        return self._prof_t0
+
+    def _profile_stop(self) -> dict:
+        """End the running slice now; its result, also kept in
+        ``_prof_result``."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(self.device)
+        t1 = time.time_ns()
+        spans, was = self._spans, self._span_open
+        if was is not None:
+            spans.append((was[0], was[1], t1))
+        prof = self._profile_close()
+        t2 = time.time_ns()
+        out = device_trace.reduce(device_trace.kernel_events(prof, cuda),
+                                  self._prof_t0, t1, spans)
+        del out["kernel_s"]
+        out.update(start=self._prof_t0 / 1e9, spans=len(spans),
+                   spans_dropped=self._spans_dropped,
+                   capped=t1 - self._prof_t0 > PROFILE_SLICE_MAX_S * 1e9,
+                   profiler_start_s=self._prof_start_s,
+                   profiler_stop_s=(t2 - t1) / 1e9,
+                   reduce_s=(time.time_ns() - t2) / 1e9)
+        self._prof_result = out
+        return out
+
+    def _profile_close(self):
+        """Stop the profiler, if one runs, and the spans; returns it."""
+        prof, self._prof, self._spans = self._prof, None, None
+        if prof is not None:
+            prof.stop()
+        return prof
+
+    def _phase(self, name: str) -> None:
+        """The scheduler enters phase `name` (the hook is on): the open
+        span closes now; past ``PROFILE_SPANS_MAX`` spans are counted, not
+        kept."""
+        was = self._span_open
+        if was is not None and was[0] == name:
+            return
+        now = time.time_ns()
+        self._span_open = (name, now)
+        if was is not None:
+            if len(self._spans) < PROFILE_SPANS_MAX:
+                self._spans.append((was[0], was[1], now))
+            else:
+                self._spans_dropped += 1
 
     # ---------------------------------------------------------------- stats
 
@@ -1781,10 +2053,14 @@ class LLMEngine:
                "ragged_kernel": self._ragged_kernel,
                "device": str(self.device),
                "decode_steps": self.decode_steps,
+               "decode_slot_steps": self.decode_slot_steps,
                "prefills": self.prefills,
                "prefix_prefills": self.prefix_prefills,
                "prefill_seconds": self.prefill_seconds,
                "decode_seconds": self.decode_seconds,
+               "decode_launch_seconds": self.decode_launch_seconds,
+               "decode_sync_seconds": self.decode_sync_seconds,
+               "decode_launch_cpu_seconds": self.decode_launch_cpu_seconds,
                "aborts": self.aborts,
                "decode_occupancy": (self.decode_slot_steps / self.decode_steps
                                     if self.decode_steps else 0.0)}

@@ -2,7 +2,10 @@
 
 The port's copy of ray_tpu/llm/server.py: the same deployment, wire shapes
 (completions, chat, their SSE streams, /v1/stats), guided decoding, LoRA
-adapters through `multiplexed`, and the replica's deadline and cancel hooks.
+adapters through `multiplexed`, and the replica's deadline and cancel hooks;
+besides, with ``LLMConfig(profile_routes=True)``, POST /start_profile and
+/stop_profile (vLLM's operator routes) bracket a device trace of the
+engine whose idle is put down to its phases.
 The engine runs on the replica's GPU unless
 ``engine_kwargs={"device": "cpu"}``; a replica gets its GPU through
 ``deployment_config={"ray_actor_options": {"num_gpus": 1}}``.
@@ -255,6 +258,17 @@ class LLMServer:
     def engine_stats(self) -> dict:
         return self.engine.stats()
 
+    def start_profile(self) -> dict:
+        """Start the engine's device-trace hook (``LLMEngine.start_profile``;
+        the ``/start_profile`` route, as vLLM's)."""
+        return {"start": self.engine.start_profile()}
+
+    def stop_profile(self) -> dict:
+        """End it: the slice's device busy and idle seconds, the idle by
+        the engine phase that was open, the heaviest kernels
+        (``LLMEngine.stop_profile``; the ``/stop_profile`` route)."""
+        return self.engine.stop_profile()
+
     def completions_stream(self, body: dict):
         """Token-by-token SSE chunks, OpenAI text_completion.chunk shape
         (reference: llm serve streams engine tokens through the replica —
@@ -303,7 +317,19 @@ class LLMServer:
             # engine observability: slots/pages plus the prefix-cache and
             # speculative sections when those features are enabled
             return self.engine_stats()
+        if path.endswith(("/start_profile", "/stop_profile")):
+            return self._profile_route(path, request.get("method"))
         return self.completions(body)
+
+    def _profile_route(self, path: str, method: str | None) -> dict:
+        if not self.config.profile_routes:
+            raise PermissionError(f"{path}: the profile routes are off "
+                                  "(LLMConfig(profile_routes=True))")
+        if method != "POST":
+            raise ValueError(f"{path} takes POST, not {method}")
+        if path.endswith("/start_profile"):
+            return self.start_profile()
+        return self.stop_profile()
 
 
 def build_openai_app(llm_config: LLMConfig) -> serve.Application:

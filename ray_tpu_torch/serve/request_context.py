@@ -7,7 +7,8 @@ request tracing + phase attribution):
   compiled-DAG fast path) per (metric, phase) labelset, gated by
   `RayConfig.serve_metrics`. One histogram family per layer so dashboards
   can slice the serving hot path: proxy accept/parse/route/handle, handle
-  pick/RTT, replica queue-wait/execute, engine admission-wait/inter-token,
+  pick/RTT, replica queue-wait/execute, engine queue-wait/prefill/
+  admission-wait/inter-token,
   PD per-page transfer waits.
 - **request ids + span sampling** — every request entering the HTTP proxy
   gets a 16-byte id; every Nth (`RayConfig.serve_span_sample_every`) opens
@@ -77,8 +78,10 @@ def _make_histograms() -> dict:
             "wait, execute = user callable)", **kw),
         ENGINE_PHASE: met.get_or_create(
             met.Histogram, "ray_tpu_llm_engine_phase_seconds",
-            "engine request phases (admission_wait = submit->decode-slot "
-            "bind, inter_token = gap between emitted tokens)", **kw),
+            "engine request phases (queue_wait = submit->the pass that "
+            "starts its admission, prefill = that pass->first token, "
+            "admission_wait = submit->decode-slot bind, inter_token = gap "
+            "between emitted tokens)", **kw),
         PD_PHASE: met.get_or_create(
             met.Histogram, "ray_tpu_llm_pd_phase_seconds",
             "PD transfer-plane phases (transfer_wait = reader-side "

@@ -44,7 +44,9 @@ RANK = 4
 # took, and counts and times its prefills and decode steps (the card's
 # serving numbers come from these)
 PORT_ONLY_STATS = {"device", "ragged_kernel", "prefills", "prefix_prefills",
-                   "prefill_seconds", "decode_seconds"}
+                   "prefill_seconds", "decode_seconds", "decode_slot_steps",
+                   "decode_launch_seconds", "decode_sync_seconds",
+                   "decode_launch_cpu_seconds"}
 JAX_ONLY_STATS: set = set()
 
 
